@@ -36,6 +36,7 @@ SIGNATURES = {
     "ntt": {
         "bsx_ntt_cols": [_P, _P, _P, _P, _P, _I, _I, _I, _U64, _P, _P],
         "bsx_ntt_smem_max_n": [],
+        "bsx_twiddle_transpose": [_P, _P, _P, _P, _P, _I, _I, _P],
     },
     "poseidon": {
         "bsx_poseidon_set_round_constants": [_P],
@@ -48,7 +49,7 @@ SIGNATURES = {
     },
 }
 
-launches = {"ntt": 0, "poseidon": 0, "edwards_add": 0, "pow_chain": 0}
+launches = {"ntt": 0, "twiddle_transpose": 0, "poseidon": 0, "edwards_add": 0, "pow_chain": 0}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

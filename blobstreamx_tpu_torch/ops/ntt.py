@@ -7,6 +7,10 @@ CPU tensor it runs ``ntt_cols_plain``, the DIT butterfly stages written as
 reshapes over the whole array (the JAX package's ``_apply_stages``). Both
 are natural order in and out and bit-identical.
 
+``ntt_four_step`` transforms one long vector as an (n1, n2) matrix: column
+NTTs, the twiddle multiply fused with the transpose (``twiddle_transpose``,
+a kernel of its own in csrc/ntt.cu), column NTTs again.
+
 Golden oracle: blobstreamx_tpu_torch.golden.ntt.
 """
 
@@ -187,3 +191,108 @@ def lde_cols(coeffs: Gl, rate_bits: int, shift: int = gold.COSET_SHIFT) -> Gl:
     z = torch.zeros((pad, c), dtype=torch.int64, device=coeffs[0].device)
     padded = (torch.cat([coeffs[0], z], dim=0), torch.cat([coeffs[1], z], dim=0))
     return coset_ntt_cols(padded, shift)
+
+
+# ----------------------------------------------------------------------------
+# four-step single-polynomial NTT (one long vector as an (n1, n2) matrix)
+# ----------------------------------------------------------------------------
+
+
+def four_step_shape(log_n: int) -> tuple[int, int]:
+    """(n1, n2) with n1 = 2^(log_n // 2): the matrix a length-2^log_n vector
+    is reshaped to."""
+    log_n1 = log_n // 2
+    return 1 << log_n1, 1 << (log_n - log_n1)
+
+
+@lru_cache(maxsize=None)
+def four_step_twiddles(log_n: int, inverse: bool) -> np.ndarray:
+    """W[k1, i2] = w^(±k1*i2) as an (n1, n2) uint64 matrix.
+
+    k1*i2 < n, and power_table holds w^j for j < n/2; w^(n/2) = -1, so
+    w^j = p - w^(j - n/2) above that."""
+    n1, n2 = four_step_shape(log_n)
+    tab = power_table(log_n, inverse)
+    half = tab.shape[0]
+    e = np.arange(n1, dtype=np.int64)[:, None] * np.arange(n2, dtype=np.int64)[None, :]
+    low = e < half
+    return np.where(low, tab[np.where(low, e, 0)], np.uint64(P) - tab[np.where(low, 0, e - half)])
+
+
+@lru_cache(maxsize=None)
+def _four_step_twiddles_device(log_n: int, inverse: bool, device: str) -> Gl:
+    return gf64.from_u64(four_step_twiddles(log_n, inverse), device)
+
+
+def _check_twiddle_transpose_input(mat: Gl, log_n: int) -> None:
+    lo, hi = mat
+    if lo.dtype != torch.int64 or hi.dtype != torch.int64 or lo.shape != hi.shape or lo.device != hi.device:
+        raise ValueError("twiddle_transpose expects two equal-shape int64 tensors on one device")
+    if tuple(lo.shape) != four_step_shape(log_n):
+        raise ValueError(f"twiddle_transpose expects shape {four_step_shape(log_n)} at log_n={log_n}, got {tuple(lo.shape)}")
+
+
+def twiddle_transpose_plain(mat: Gl, log_n: int, inverse: bool = False) -> Gl:
+    """The plain version of the four-step middle step: (n1, n2) -> (n2, n1),
+    out[i2, k1] = mat[k1, i2] * w^(±k1*i2)."""
+    _check_twiddle_transpose_input(mat, log_n)
+    lo, hi = gl_mul(mat, _four_step_twiddles_device(log_n, inverse, str(mat[0].device)))
+    return lo.t().contiguous(), hi.t().contiguous()
+
+
+def _twiddle_transpose_cuda(mat: Gl, log_n: int, inverse: bool) -> Gl:
+    _check_twiddle_transpose_input(mat, log_n)
+    lo, hi = mat
+    if not (lo.is_contiguous() and hi.is_contiguous()):
+        raise ValueError("twiddle_transpose expects contiguous (row-major) tensors")
+    n1, n2 = lo.shape
+    lib = kernels.load("ntt")
+    out_lo = torch.empty((n2, n1), dtype=torch.int64, device=lo.device)
+    out_hi = torch.empty((n2, n1), dtype=torch.int64, device=lo.device)
+    tw = _power_table_device(log_n, inverse, str(lo.device))
+    with torch.cuda.device(lo.device):
+        rc = lib.bsx_twiddle_transpose(
+            lo.data_ptr(), hi.data_ptr(), out_lo.data_ptr(), out_hi.data_ptr(), tw.data_ptr(),
+            n1.bit_length() - 1, n2.bit_length() - 1, kernels.stream_of(lo),
+        )
+    kernels.check(rc, "twiddle-transpose kernel")
+    kernels.count("twiddle_transpose")
+    return out_lo, out_hi
+
+
+def twiddle_transpose(mat: Gl, log_n: int, inverse: bool = False) -> Gl:
+    """Four-step twiddle multiply fused with the transpose: the kernel
+    (csrc/ntt.cu) on CUDA tensors, the plain version on CPU tensors."""
+    if on_cuda(mat[0]):
+        return _twiddle_transpose_cuda(mat, log_n, inverse)
+    return twiddle_transpose_plain(mat, log_n, inverse)
+
+
+def _four_step(x: Gl, inverse: bool, cols, twiddle_t) -> Gl:
+    n = x[0].shape[0]
+    log_n = _log2_exact(n)
+    n1, n2 = four_step_shape(log_n)
+    # length-n1 column NTTs (the n1^-1 of the inverse is applied here, n2^-1
+    # by the second pass), twiddle + transpose, length-n2 column NTTs; the
+    # row-major (n2, n1) result holds k = k1 + n1*k2 at [k2, k1]: natural order
+    mat = cols((x[0].reshape(n1, n2), x[1].reshape(n1, n2)), inverse)
+    mat = cols(twiddle_t(mat, log_n, inverse), inverse)
+    return mat[0].reshape(n), mat[1].reshape(n)
+
+
+def ntt_four_step(x: Gl, inverse: bool = False) -> Gl:
+    """NTT of one length-n polynomial x (a Gl of shape (n,)), natural order
+    in and out, as n1 x n2 column transforms. CUDA tensors run the NTT kernel
+    twice and the twiddle-transpose kernel once; CPU tensors the plain
+    versions."""
+    return _four_step(x, inverse, ntt_cols, twiddle_transpose)
+
+
+def ntt_four_step_plain(x: Gl, inverse: bool = False) -> Gl:
+    """ntt_four_step on the plain versions alone, on the input's device."""
+    return _four_step(x, inverse, ntt_cols_plain, twiddle_transpose_plain)
+
+
+def butterfly_count(log_n: int) -> int:
+    """Total radix-2 butterflies in one length-2^log_n transform."""
+    return (1 << (log_n - 1)) * log_n

@@ -11,7 +11,6 @@ Transcript convention: an ext element is observed/sampled as (c0, c1).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from functools import lru_cache
 
 import torch
 
@@ -45,12 +44,6 @@ class FriExtProof:
     query_rounds: list[FriExtQueryRound]
 
 
-@lru_cache(maxsize=None)
-def _fold_tables(log_n: int, shift: int, device: str):
-    half = 1 << (log_n - 1)
-    return gf64.full((half,), INV2, device), gf64.from_u64(fri_ops._xinv_table(log_n, shift), device)
-
-
 def fold_codeword_ext(evals, beta, shift: int):
     """One arity-2 fold of an ext codeword on the base coset shift*<w>.
     beta: ext scalar of shape (1,) (or any broadcastable ext tensor)."""
@@ -60,7 +53,7 @@ def fold_codeword_ext(evals, beta, shift: int):
     fe = tuple((c[0][:half], c[1][:half]) for c in (evals[0], evals[1]))
     fo = tuple((c[0][half:], c[1][half:]) for c in (evals[0], evals[1]))
     # component-wise: even = (fe+fo)/2; odd = (fe-fo)/(2x)
-    inv2, xinv = _fold_tables(log_n, shift, str(evals[0][0].device))
+    inv2, xinv = fri_ops.fold_tables(log_n, shift, str(evals[0][0].device))
     even = tuple(gl_mul(gl_add(e, o), inv2) for e, o in zip(fe, fo))
     odd = tuple(gl_mul(gl_mul(gl_sub(e, o), inv2), xinv) for e, o in zip(fe, fo))
     return gf64.ext_add(even, gf64.ext_mul(odd, beta))

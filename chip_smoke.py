@@ -14,10 +14,14 @@ result):
   2. the kernel build: one nvcc per csrc/*.cu, started together, into
      build/kernels/;
   3. a kernel check per kernel: the kernel against its plain PyTorch version
-     on the same seeded inputs at the main path's shapes (values near p,
-     near 2^32 and 2^256, random valid curve points), mismatches (must be
-     0), the kernel's and the plain version's time by CUDA events, and the
-     kernel's bound from its counted bytes and operations;
+     on the same seeded inputs (values near p, near 2^32 and 2^256, random
+     valid curve points) at the main paths' shapes, among them Poseidon at
+     config 4's (12, 2^21) and (12, 2^20) and the NTT at the FRI final
+     polynomial's (8, 1); mismatches (must be 0), the kernel's and the
+     plain version's time by CUDA events, and the
+     kernel's bound from its counted bytes and operations (the
+     twiddle-transpose also beside a bare transpose copy, and the sqn chain
+     timed at k = 1, 5 and 50);
   4. card vs CPU: the small chain of tests/test_pipeline.py proven on cuda
      and on cpu gives identical proof bytes (the CPU path is held
      byte-equal to the JAX package by the CPU tests);
@@ -28,9 +32,25 @@ result):
      (each must be > 0) and the peak device memory;
   6. only with --profile: one more warm prove under torch.profiler (device
      time by kernel, host time by operator, kernel launches, the device's
-     busy share of the wall).
+     busy share of the wall), and the same for one more warm config-4 run
+     at the end of phase 7;
+  7. config 4 (benches/configs.py's config4: one 2^22 polynomial, numpy
+     seed 0): a cold and a warm run of the path, the launches and peak
+     device memory of the warm one (ntt, twiddle_transpose and poseidon must
+     each launch) — the four-step NTT forward and inverse, a low-degree
+     codeword (2^19 coefficients, coset_scale, four-step) and its FRI proof
+     (default FriConfig) — then the checks: four-step == its plain version
+     == ntt_cols of the (2^22, 1) column, inverse(forward) == identity, the
+     codeword == lde_cols, fri_verify accepts the proof and rejects one
+     changed query pair; then CUDA-event times of the four-step (16
+     iterations each way, butterflies/s) and of its plain version, of the
+     column path and of one
+     fold of the codeword. One JSON line {"config4": {...}}.
 
-The line before the last is one JSON object {"kernels": [...]}; the last is
+Each path has its own list of kernels that must launch. Before the last
+line come {"config5": ...}, {"config4": ...} and {"kernels": [...]}, where
+each kernel's "launches" is from the warm run of its own path ("path") and
+"launches_by_path" has both; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Bounds: the least time the card could take, the larger of the bytes moved
@@ -59,6 +79,11 @@ POW22523_MULS = 262  # field multiplies of the pow22523 chain
 EDWARDS_ADD_MULS = 9
 
 CONFIG5 = dict(seed=7, n_headers=1024, n_validators=32, trusted=1, target=1024)
+CONFIG4 = dict(seed=0, log_n=22, fold_beta=0x123456789ABCDEF, iters=16)
+PATH_KERNELS = {
+    "config5": ("ntt", "poseidon", "edwards_add", "pow_chain"),
+    "config4": ("ntt", "twiddle_transpose", "poseidon"),
+}
 
 
 def log(*a):
@@ -71,10 +96,10 @@ def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def time_ms(fn, reps: int) -> float:
+def time_ms(fn, reps: int, warm: int = 3) -> float:
     import torch
 
-    for _ in range(3):
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -88,6 +113,12 @@ def time_ms(fn, reps: int) -> float:
 
 def max_abs(a, b) -> float:
     return float((a - b).abs().max().item()) if a.numel() else 0.0
+
+
+def gl_mismatch(k, p) -> tuple[int, float]:
+    """Elements where two Gl pairs differ, and the largest word difference."""
+    mism = int(((k[0] != p[0]) | (k[1] != p[1])).sum().item())
+    return mism, max(max_abs(k[0], p[0]), max_abs(k[1], p[1]))
 
 
 # ----------------------------------------------------------------------------
@@ -163,14 +194,14 @@ def check_ntt(rng, dev):
         ((256, 8), False, "trace LDE"),
         ((256, 2), True, "quotient coset INTT"),
         ((1 << 16, 8), False, "multi-launch path"),
+        ((2048, 2048), False, "four-step pass at 2^22"),
+        ((2048, 2048), True, "four-step inverse pass at 2^22"),
+        ((8, 1), True, "FRI final-poly coset INTT"),
     ]
     for (n, c), inverse, what in cases:
         x = gf64.from_u64(gl_values(rng, (n, c)), dev)
-        k = ntt._ntt_cols_cuda(x, inverse)
-        p = ntt.ntt_cols_plain(x, inverse)
-        mism = int(((k[0] != p[0]) | (k[1] != p[1])).sum().item())
-        err = max(max_abs(k[0], p[0]), max_abs(k[1], p[1]))
-        reps = 20 if n <= 4096 else 5
+        mism, err = gl_mismatch(ntt._ntt_cols_cuda(x, inverse), ntt.ntt_cols_plain(x, inverse))
+        reps = 20 if n * c <= 1 << 16 else 5
         ms = time_ms(lambda: ntt._ntt_cols_cuda(x, inverse), reps)
         plain_ms = time_ms(lambda: ntt.ntt_cols_plain(x, inverse), 3)
         log_n = n.bit_length() - 1
@@ -188,20 +219,50 @@ def check_poseidon(rng, dev):
     from blobstreamx_tpu_torch.fields import gf64
     from blobstreamx_tpu_torch.ops import poseidon as pos
 
-    n = 16384
-    s = gf64.from_u64(gl_values(rng, (12, n)), dev)
-    k = pos._permute_cuda(s)
-    p = pos.permute_plain(s)
-    mism = int(((k[0] != p[0]) | (k[1] != p[1])).sum().item())
-    err = max(max_abs(k[0], p[0]), max_abs(k[1], p[1]))
-    ms = time_ms(lambda: pos._permute_cuda(s), 20)
-    plain_ms = time_ms(lambda: pos.permute_plain(s), 3)
-    muls = (8 * 12 + 22) * 4
-    b, by = bound(2 * 12 * 16 * n, n * muls * GL_MUL_OPS)
-    log(f"  poseidon (12, {n}): mismatches {mism}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"bound {b:.6f} ms ({by})")
-    assert mism == 0, "poseidon kernel disagrees with the plain version"
-    return [dict(shape=f"(12, {n})", max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by)]
+    rows = []
+    # config 5's grind batch; config 4's first FRI leaf hashes and its first compression
+    for n in (16384, 1 << 21, 1 << 20):
+        s = gf64.from_u64(gl_values(rng, (12, n)), dev)
+        mism, err = gl_mismatch(pos._permute_cuda(s), pos.permute_plain(s))
+        ms = time_ms(lambda: pos._permute_cuda(s), 20)
+        plain_ms = time_ms(lambda: pos.permute_plain(s), 3) if n <= 16384 else time_ms(
+            lambda: pos.permute_plain(s), 1, warm=1)
+        muls = (8 * 12 + 22) * 4
+        b, by = bound(2 * 12 * 16 * n, n * muls * GL_MUL_OPS)
+        log(f"  poseidon (12, {n}): mismatches {mism}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {b:.6f} ms ({by})")
+        assert mism == 0, f"poseidon kernel disagrees with the plain version at (12, {n})"
+        rows.append(dict(shape=f"(12, {n})", max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
+                         bound_by=by))
+        del s
+    return rows
+
+
+def check_twiddle_transpose(rng, dev):
+    from blobstreamx_tpu_torch.fields import gf64
+    from blobstreamx_tpu_torch.ops import ntt
+
+    rows = []
+    for n1, n2 in ((2048, 2048), (1024, 2048), (1, 2)):
+        n = n1 * n2
+        log_n = n.bit_length() - 1
+        m = gf64.from_u64(gl_values(rng, (n1, n2)), dev)
+        for inverse in (False, True):
+            mism, err = gl_mismatch(ntt._twiddle_transpose_cuda(m, log_n, inverse),
+                                    ntt.twiddle_transpose_plain(m, log_n, inverse))
+            ms = time_ms(lambda: ntt._twiddle_transpose_cuda(m, log_n, inverse), 20)
+            plain_ms = time_ms(lambda: ntt.twiddle_transpose_plain(m, log_n, inverse), 5)
+            # the bare transpose copy, no multiply: a yardstick, not the same function
+            copy_ms = time_ms(lambda: (m[0].t().contiguous(), m[1].t().contiguous()), 20)
+            # the function's own bytes; the twiddle-table reads are this design's cost, not counted
+            b, by = bound(32 * n, n * GL_MUL_OPS)
+            shape = f"({n1}, {n2}) {'inverse' if inverse else 'forward'}"
+            log(f"  twiddle_transpose {shape}: mismatches {mism}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"transpose copy {copy_ms:.4f} ms, bound {b:.6f} ms ({by})")
+            assert mism == 0, f"twiddle-transpose kernel disagrees with the plain version at {shape}"
+            rows.append(dict(shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                             transpose_copy_ms=copy_ms))
+    return rows
 
 
 def _fe_tensor(vals, dev):
@@ -260,27 +321,38 @@ def check_pow_chain(rng, dev):
     a = _fe_tensor(fe_values(rng, 64), dev)
     for k in (1, 5, 50):
         mism, err = _field_mismatch(f._chain_cuda(a, k), f.sqn_plain(a, k))
-        log(f"  sqn k={k} (64 lanes): mismatches {mism}")
+        ms = time_ms(lambda: f._chain_cuda(a, k), 20)
+        plain_ms = time_ms(lambda: f.sqn_plain(a, k), 3)
+        b, by = bound(2 * 16 * 8 * 64, 64 * k * FE_MUL_OPS)
+        log(f"  sqn k={k} (64 lanes): mismatches {mism}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {b:.6f} ms ({by})")
         assert mism == 0, f"sqn kernel disagrees with the plain version at k={k}"
+        rows.append(dict(shape=f"sqn k={k}, 64 lanes", max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=b, bound_by=by))
     return rows
 
 
 KERNELS = [
     dict(name="ntt", counter="ntt", source="blobstreamx_tpu_torch/csrc/ntt.cu",
          replaces="blobstreamx_tpu/ops/ntt.py:332", also_replaces="blobstreamx_tpu/ops/ntt.py:248",
-         main_shape="(256, 8) forward", check=check_ntt),
+         path="config4", main_shape="(2048, 2048) forward", check=check_ntt),
+    dict(name="twiddle_transpose", counter="twiddle_transpose", source="blobstreamx_tpu_torch/csrc/ntt.cu",
+         replaces="blobstreamx_tpu/ops/ntt.py:374", also_replaces="blobstreamx_tpu/ops/ntt.py:289",
+         path="config4", main_shape="(2048, 2048) forward", check=check_twiddle_transpose),
     dict(name="poseidon", counter="poseidon", source="blobstreamx_tpu_torch/csrc/poseidon.cu",
-         replaces="blobstreamx_tpu/ops/poseidon.py:188", main_shape="(12, 16384)", check=check_poseidon),
+         replaces="blobstreamx_tpu/ops/poseidon.py:188", path="config5", main_shape="(12, 16384)",
+         check=check_poseidon),
     dict(name="edwards_add", counter="edwards_add", source="blobstreamx_tpu_torch/csrc/ed25519.cu",
-         replaces="blobstreamx_tpu/ops/curve25519.py:135", main_shape="4096 lanes", check=check_edwards_add),
+         replaces="blobstreamx_tpu/ops/curve25519.py:135", path="config5", main_shape="4096 lanes",
+         check=check_edwards_add),
     dict(name="pow_chain", counter="pow_chain", source="blobstreamx_tpu_torch/csrc/ed25519.cu",
          replaces="blobstreamx_tpu/fields/gf25519.py:333", also_replaces="blobstreamx_tpu/fields/gf25519.py:267",
-         main_shape="pow22523, 64 lanes", check=check_pow_chain),
+         path="config5", main_shape="pow22523, 64 lanes", check=check_pow_chain),
 ]
 
 
 # ----------------------------------------------------------------------------
-# phases 4 and 5: the main path
+# phases 4, 5 and 7: the main paths
 # ----------------------------------------------------------------------------
 
 
@@ -328,6 +400,7 @@ def config5():
 
     kernels.reset_counts()
     torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     warm = pipeline.prove_skip(w, device="cuda")
     torch.cuda.synchronize()
@@ -337,8 +410,9 @@ def config5():
     log(f"  warm prove_skip: {warm_s:.3f} s")
     log("  warm TimingTree:\n" + "\n".join("    " + line for line in warm.timing.splitlines()))
     log(f"  kernel launches in the warm prove: {json.dumps(launches)}")
-    log(f"  peak device memory in the warm prove: {peak} bytes")
-    assert all(v > 0 for v in launches.values()), f"a kernel of the path was not launched: {launches}"
+    log(f"  peak device memory in the warm prove: {peak} bytes ({resident} resident before it)")
+    missing = [k for k in PATH_KERNELS["config5"] if launches[k] == 0]
+    assert not missing, f"kernels of the config-5 path were not launched: {missing} ({launches})"
     assert skip_proof_to_bytes(warm) == skip_proof_to_bytes(cold), "warm and cold proofs differ"
 
     t0 = time.perf_counter()
@@ -353,19 +427,163 @@ def config5():
     return launches, cold_s, warm_s, w
 
 
-def profile_warm_prove(w):
-    """One more warm config-5 prove under torch.profiler (only with
+def config4_inputs(seed: int, log_n: int, log_coeffs: int):
+    """The 2^log_n vector of benches/configs.py's config4 and the
+    2^log_coeffs coefficients of a low-degree codeword, from numpy, on the card."""
+    import numpy as np
+
+    from blobstreamx_tpu_torch.fields import gf64
+
+    rng = np.random.default_rng(seed)
+    x = gf64.from_u64(rng.integers(0, gf64.P, size=(1 << log_n,), dtype=np.uint64), "cuda")
+    coeffs = gf64.from_u64(rng.integers(0, gf64.P, size=(1 << log_coeffs, 1), dtype=np.uint64), "cuda")
+    return x, coeffs
+
+
+def config4_path(x, coeffs, cfg, shift: int):
+    """The config-4 path once: the four-step NTT of x and its inverse, the
+    low-degree codeword of `coeffs` (zero-padded to len(x), coset_scale,
+    four-step) and its FRI proof. Returns (forward, inverse of forward,
+    codeword, proof, fri_prove wall in s)."""
+    import torch
+
+    from blobstreamx_tpu_torch.golden.challenger import Challenger
+    from blobstreamx_tpu_torch.ops import fri, ntt
+
+    n = x[0].shape[0]
+    y = ntt.ntt_four_step(x)
+    back = ntt.ntt_four_step(y, inverse=True)
+    pad = torch.zeros((n - coeffs[0].shape[0], 1), dtype=torch.int64, device=x[0].device)
+    col = ntt.coset_scale((torch.cat([coeffs[0], pad]), torch.cat([coeffs[1], pad])), shift)
+    cw = ntt.ntt_four_step((col[0][:, 0], col[1][:, 0]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    proof = fri.fri_prove(cw, cfg, Challenger(), shift)
+    torch.cuda.synchronize()
+    return y, back, cw, proof, time.perf_counter() - t0
+
+
+def config4_checks(x, coeffs, y, back, cw, proof, cfg, shift: int) -> dict:
+    """Each check of the config-4 outputs: the mismatch counts (each must be
+    0), whether fri_verify accepts the proof (must) and rejects it with one
+    query pair changed (must), and the verifier's time."""
+    import copy
+
+    from blobstreamx_tpu_torch.fields.gf64 import P
+    from blobstreamx_tpu_torch.golden.challenger import Challenger
+    from blobstreamx_tpu_torch.golden.fri import fri_verify
+    from blobstreamx_tpu_torch.ops import ntt
+
+    def col(v):
+        return v[0][:, None], v[1][:, None]
+
+    out = {"mismatches": {
+        "forward_vs_plain": gl_mismatch(y, ntt.ntt_four_step_plain(x))[0],
+        "inverse_vs_plain": gl_mismatch(back, ntt.ntt_four_step_plain(y, inverse=True))[0],
+        "forward_vs_ntt_cols_column": gl_mismatch(col(y), ntt.ntt_cols(col(x)))[0],
+        "inverse_vs_ntt_cols_column": gl_mismatch(col(back), ntt.ntt_cols(col(y), inverse=True))[0],
+        "roundtrip_vs_input": gl_mismatch(back, x)[0],
+        "codeword_vs_lde_cols": gl_mismatch(col(cw), ntt.lde_cols(coeffs, cfg.rate_bits, shift))[0],
+    }}
+    t0 = time.perf_counter()
+    out["fri_verify_accepts"] = fri_verify(proof, x[0].shape[0], cfg, Challenger(), shift)
+    out["fri_verify_s"] = time.perf_counter() - t0
+    bad = copy.deepcopy(proof)
+    fe, fo = bad.query_rounds[0].layers[0].pair
+    bad.query_rounds[0].layers[0].pair = ((fe + 1) % P, fo)
+    out["fri_verify_rejects_tampered"] = not fri_verify(bad, x[0].shape[0], cfg, Challenger(), shift)
+    return out
+
+
+def config4(smi: str, profile: bool = False):
+    """Config 4 on the card: cold and warm runs of the path, launches and
+    peak memory of the warm one, the checks, then CUDA-event times; with
+    `profile`, one more warm run under torch.profiler."""
+    import torch
+
+    from blobstreamx_tpu_torch import kernels
+    from blobstreamx_tpu_torch.golden import goldilocks as gold
+    from blobstreamx_tpu_torch.golden.fri import FriConfig
+    from blobstreamx_tpu_torch.ops import fri, ntt
+
+    c = CONFIG4
+    cfg, shift = FriConfig(), gold.COSET_SHIFT
+    log_n = c["log_n"]
+    n = 1 << log_n
+    t0 = time.perf_counter()
+    x, coeffs = config4_inputs(c["seed"], log_n, log_n - cfg.rate_bits)
+    log(f"  inputs (numpy seed {c['seed']}, 2^{log_n} values, 2^{log_n - cfg.rate_bits} coefficients): "
+        f"{time.perf_counter() - t0:.3f} s")
+
+    t0 = time.perf_counter()
+    cold = config4_path(x, coeffs, cfg, shift)
+    cold_s = time.perf_counter() - t0
+    log(f"  cold path (host tables built here): {cold_s:.3f} s, of which fri_prove {cold[4]:.3f} s")
+
+    kernels.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    y, back, cw, proof, fri_s = config4_path(x, coeffs, cfg, shift)
+    warm_s = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  warm path: {warm_s:.3f} s, of which fri_prove {fri_s:.3f} s")
+    log(f"  kernel launches in the warm path: {json.dumps(launches)}")
+    log(f"  peak device memory in the warm path: {peak} bytes ({resident} resident before it)")
+    missing = [k for k in PATH_KERNELS["config4"] if launches[k] == 0]
+    assert not missing, f"kernels of the config-4 path were not launched: {missing} ({launches})"
+    assert proof == cold[3], "warm and cold FRI proofs differ"
+
+    checks = config4_checks(x, coeffs, y, back, cw, proof, cfg, shift)
+    log(f"  checks: {json.dumps(checks)}")
+    assert not any(checks["mismatches"].values()), f"config-4 outputs disagree: {checks['mismatches']}"
+    assert checks["fri_verify_accepts"], "fri_verify rejected the config-4 proof"
+    assert checks["fri_verify_rejects_tampered"], "fri_verify accepted a proof with a changed query pair"
+
+    iters = c["iters"]
+    ntt_ms = time_ms(lambda: ntt.ntt_four_step(x), iters)
+    intt_ms = time_ms(lambda: ntt.ntt_four_step(y, inverse=True), iters)
+    plain_ms = time_ms(lambda: ntt.ntt_four_step_plain(x), 3)
+    xc = (x[0][:, None], x[1][:, None])
+    col_ms = time_ms(lambda: ntt.ntt_cols(xc), iters)
+    fold_ms = time_ms(lambda: fri.fold_codeword(cw, c["fold_beta"], shift), iters)
+    bf = ntt.butterfly_count(log_n)
+    # one read and one write of 32 B per element; multiplies: butterflies + twiddles
+    b, by = bound(32 * n, (bf + n) * GL_MUL_OPS)
+    col_b, _ = bound(32 * n + 8 * (n // 2), bf * GL_MUL_OPS)  # as check_ntt counts it
+    rec = dict(
+        log_n=log_n, seed=c["seed"], iters=iters,
+        ntt_wall_s=ntt_ms / 1e3, butterflies_per_s=bf / (ntt_ms / 1e3),
+        intt_wall_s=intt_ms / 1e3, intt_butterflies_per_s=bf / (intt_ms / 1e3),
+        ntt_plain_wall_s=plain_ms / 1e3, ntt_cols_column_wall_s=col_ms / 1e3, ntt_cols_column_bound_ms=col_b,
+        four_step_bound_ms=b, four_step_bound_by=by, butterflies_per_s_at_bound=bf / (b / 1e3),
+        fri_fold_wall_s=fold_ms / 1e3, fri_fold_elems_per_s=(n // 2) / (fold_ms / 1e3),
+        fri_prove_wall_s=fri_s, fri_prove_cold_s=cold[4], path_warm_s=warm_s, path_cold_s=cold_s,
+        fri_verify_s=checks["fri_verify_s"], fri_config=dataclasses.asdict(cfg),
+        launches=launches, peak_device_bytes=peak, resident_before_bytes=resident, card=smi,
+    )
+    log(f"  four-step 2^{log_n}: forward {ntt_ms:.4f} ms ({rec['butterflies_per_s']:.4e} butterflies/s), "
+        f"inverse {intt_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b:.6f} ms ({by}); ntt_cols of the "
+        f"(2^{log_n}, 1) column {col_ms:.4f} ms (bound {col_b:.6f} ms); fold {fold_ms:.4f} ms")
+    log(json.dumps({"config4": rec}))
+    if profile:
+        profile_warm("config-4 warm path", lambda: config4_path(x, coeffs, cfg, shift))
+    return launches
+
+
+def profile_warm(what: str, run):
+    """One more warm run of a path under torch.profiler (only with
     --profile): device time by kernel name, host time by operator, the
-    number of kernel launches and the device's busy share of the wall."""
+    number of kernel launches and the device's busy share of the wall.
+    Returns what `run` returned."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from blobstreamx_tpu_torch.prover import pipeline
-
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        proof = pipeline.prove_skip(w, device="cuda")
+        result = run()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
     ka = prof.key_averages()
@@ -377,16 +595,17 @@ def profile_warm_prove(w):
     kernel_rows = [e for e in ka if e.device_type == DeviceType.CUDA]
     device_us = sum(dev_us(e) for e in kernel_rows)
     launches = sum(e.count for e in ka if e.key in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
-    log(f"  profiled warm prove: wall {wall_s:.3f} s, device busy {device_us / 1e6:.3f} s "
+    log(f"  profiled {what}: wall {wall_s:.3f} s, device busy {device_us / 1e6:.3f} s "
         f"({100 * device_us / 1e6 / wall_s:.2f} % of the wall), {launches} kernel launches")
-    log("  TimingTree:\n" + "\n".join("    " + line for line in proof.timing.splitlines()))
-    ours = ("ntt_", "poseidon_kernel", "edwards_add_kernel", "pow22523_kernel", "sqn_kernel")
+    ours = ("ntt_", "twiddle_transpose_kernel", "poseidon_kernel", "edwards_add_kernel", "pow22523_kernel",
+            "sqn_kernel")
     for e in sorted(kernel_rows, key=dev_us, reverse=True):
         if any(e.key.startswith(o) for o in ours):
             log(f"  hand kernel {e.key}: {e.count} launches, {dev_us(e) / 1e3:.3f} ms device time")
     sort_dev = "self_device_time_total" if hasattr(ka[0], "self_device_time_total") else "self_cuda_time_total"
     log(ka.table(sort_by=sort_dev, row_limit=15, max_name_column_width=60))
     log(ka.table(sort_by="self_cpu_time_total", row_limit=15, max_name_column_width=60))
+    return result
 
 
 def main() -> int:
@@ -427,10 +646,17 @@ def main() -> int:
     small_chain_card_vs_cpu()
 
     log("[5] config 5 on the card")
-    launches, cold_s, warm_s, w = config5()
+    launches5, cold_s, warm_s, w = config5()
+    log(json.dumps({"config5": {"cold_s": cold_s, "warm_s": warm_s, "launches": launches5, "card": smi}}))
     if "--profile" in sys.argv[1:]:
+        from blobstreamx_tpu_torch.prover import pipeline
+
         log("[6] profiled warm prove")
-        profile_warm_prove(w)
+        proof = profile_warm("warm prove", lambda: pipeline.prove_skip(w, device="cuda"))
+        log("  TimingTree:\n" + "\n".join("    " + line for line in proof.timing.splitlines()))
+
+    log("[7] config 4 on the card")
+    by_path = {"config5": launches5, "config4": config4(smi, profile="--profile" in sys.argv[1:])}
 
     out = []
     for k in KERNELS:
@@ -438,12 +664,13 @@ def main() -> int:
         entry = dict(name=k["name"], route="cuda", source=k["source"], replaces=k["replaces"])
         if "also_replaces" in k:
             entry["also_replaces"] = k["also_replaces"]
-        entry.update(launches=launches[k["counter"]], max_abs_err=max(r["max_abs_err"] for r in rows[k["name"]]))
+        entry.update(launches=by_path[k["path"]][k["counter"]], path=k["path"],
+                     launches_by_path={p: counts[k["counter"]] for p, counts in by_path.items()},
+                     max_abs_err=max(r["max_abs_err"] for r in rows[k["name"]]))
         entry.update({key: main_row[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")})
         entry.update(library_ms=None, shape=main_row["shape"])
         entry["other_shapes"] = [r for r in rows[k["name"]] if r is not main_row]
         out.append(entry)
-    log(json.dumps({"config5": {"cold_s": cold_s, "warm_s": warm_s, "card": smi}}))
     log(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -61,6 +61,17 @@ def test_other_entry_points_raise_when_no_cuda(small_witness):
         verify_skip(small_witness)
 
 
+def test_grind_without_device_raises_when_no_cuda():
+    from blobstreamx_tpu_torch.golden.challenger import Challenger
+    from blobstreamx_tpu_torch.ops import fri
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable here")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        fri.grind(Challenger(), 4)
+    assert fri.grind(Challenger(), 4, "cpu", batch=64) >= 0
+
+
 def test_kernel_wrappers_take_the_plain_version_only_for_cpu_tensors():
     from blobstreamx_tpu_torch import kernels
     from blobstreamx_tpu_torch.fields import gf64
@@ -71,6 +82,8 @@ def test_kernel_wrappers_take_the_plain_version_only_for_cpu_tensors():
     assert gf64.to_u64(ntt.ntt_cols(x)).tolist() == gf64.to_u64(ntt.ntt_cols_plain(x)).tolist()
     s = gf64.zeros((12, 3))
     assert gf64.to_u64(poseidon.permute(s)).tolist() == gf64.to_u64(poseidon.permute_plain(s)).tolist()
+    vec = gf64.from_u64(list(range(8)))
+    assert gf64.to_u64(ntt.ntt_four_step(vec)).tolist() == gf64.to_u64(ntt.ntt_four_step_plain(vec)).tolist()
     assert all(v == 0 for v in kernels.launches.values())
     with pytest.raises(ValueError):
         ntt.ntt_cols(tuple(t.to("meta") for t in x))

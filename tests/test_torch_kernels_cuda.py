@@ -1,4 +1,4 @@
-"""The four CUDA kernels against their plain PyTorch versions on the card
+"""The CUDA kernels against their plain PyTorch versions on the card
 (exact equality; GF(2^255-19) outputs by field value, the kernels' limbs
 canonical). Marked ``cuda``: run on a machine with a card by
 ``pytest -m cuda tests/test_torch_kernels_cuda.py``; each test skips here,
@@ -21,7 +21,8 @@ def gl(rng, shape):
     from blobstreamx_tpu_torch.fields import gf64
 
     v = rng.integers(0, gf64.P, size=shape, dtype=np.uint64)
-    v.reshape(-1)[:4] = [0, gf64.P - 1, (1 << 32) - 1, 1 << 32]
+    flat = v.reshape(-1)
+    flat[:4] = [0, gf64.P - 1, (1 << 32) - 1, 1 << 32][: flat.size]
     return gf64.from_u64(v, "cuda")
 
 
@@ -76,3 +77,33 @@ def test_power_chain_kernel(k):
     got = f._chain_cuda(a, k)
     want = f.pow22523_plain(a) if k is None else f.sqn_plain(a, k)
     assert torch.equal(got, f.canonicalize(want)) and torch.equal(got, f.canonicalize(got))
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("n1,n2", [(1, 2), (1024, 2048), (2048, 2048)])
+def test_twiddle_transpose_kernel(n1, n2, inverse):
+    from blobstreamx_tpu_torch.ops import ntt
+
+    _card()
+    log_n = (n1 * n2).bit_length() - 1
+    m = gl(np.random.default_rng(n1 + n2), (n1, n2))
+    k, p = ntt._twiddle_transpose_cuda(m, log_n, inverse), ntt.twiddle_transpose_plain(m, log_n, inverse)
+    assert k[0].shape == (n2, n1)
+    assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("log_n", [5, 11, 22])
+def test_ntt_four_step_on_the_card(log_n, inverse):
+    from blobstreamx_tpu_torch import kernels
+    from blobstreamx_tpu_torch.ops import ntt
+
+    _card()
+    x = gl(np.random.default_rng(log_n), (1 << log_n,))
+    kernels.reset_counts()
+    k = ntt.ntt_four_step(x, inverse)
+    assert kernels.launches["ntt"] == 2 and kernels.launches["twiddle_transpose"] == 1
+    p = ntt.ntt_four_step_plain(x, inverse)
+    assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+    col = ntt.ntt_cols((x[0][:, None], x[1][:, None]), inverse)
+    assert torch.equal(k[0], col[0][:, 0]) and torch.equal(k[1], col[1][:, 0])
