@@ -9,15 +9,41 @@
 // Bound: at the prover's shapes (n <= 256, C <= 8) a call moves a few KB and
 // does a few thousand 64-bit multiplies, so launch latency dominates; at
 // large n the transform is bound by the bytes it moves (16 B per element in
-// and out), with log n butterfly stages of operations over them.
+// and out, 32 B in the (lo, hi) int64 layout), with log n butterfly stages
+// of operations over them. At the four-step's (2048, 2048) passes that is
+// 0.040 ms on an H100; what stands in its way is the access pattern (a
+// column's words are a row apart) and the stage-by-stage barriers.
 //
-// Design: one block per column. The column is read once from device memory,
-// bit-reversed into shared memory, runs every stage there with
-// __syncthreads() between stages, and is written once. Columns longer than
-// NTT_SMEM_MAX_N (whose 8 n bytes pass ~128 KB) take the same transform
-// through device memory, one launch per stage with one thread per
-// (butterfly, column) pair, so neighbouring threads touch neighbouring
-// columns.
+// Design (columns of n <= NTT_SMEM_MAX_N): one block per tile of CT
+// adjacent columns (CT a power of two <= NTT_TILE_COLS, cut until the tile
+// fits shared memory; a ragged last tile is masked), so that each row's CT
+// words of lo, and of hi, are one contiguous read or write: with CT = 4
+// that is a whole 32 B sector. The log n stages run in passes of three
+// (radix 8) in registers: a thread holds the 8 elements of one butterfly
+// group of one column, x[base + j * 2^st], runs stages st, st+1, st+2 on
+// them and writes them back, so that 11 stages take 4 passes and 3
+// barriers between them instead of 11. The first pass reads its group
+// straight from device memory (the bit reversal is in the row index; its
+// twiddles of 1 are not multiplied), the last writes straight to device
+// memory (with the n^-1 of the inverse); only the passes between go through
+// shared memory, laid out [i + i/8][CT] so that neither the first pass's
+// stride-8 writes nor the later passes' contiguous accesses conflict on
+// banks. Twiddles come from the power table in device memory through the
+// read-only cache (8 KB at n = 2048). At (2048, 2048) a block holds 72 KB,
+// so two fit on an SM; 512 threads a block keep 32 warps there to hide the
+// latency of the first pass's loads. Carries of the field arithmetic come
+// from the carry flag (gl64.cuh). Other choices were timed on an H100 at
+// the shapes of chip_smoke.py's phase 3 (PERF.md): tiles of 2 columns take
+// twice as long at (2048, 2048) (half of every 32 B sector is wasted),
+// tiles of 8 columns and 256 threads a block a few per cent longer, and the
+// power table staged in shared memory once per block was within 2 % at
+// (2048, 2048) but 18 % slower at (16384, 3). Built for sm_90a the whole
+// kernel at (2048, 2048) forward is at most 62.7 SASS instructions a
+// butterfly at 64 registers a thread, against 112.9 for the
+// column-per-block kernel it replaced (kernel_report.py counts them).
+// Columns longer than NTT_SMEM_MAX_N take the same transform through device
+// memory, one launch per stage with one thread per (butterfly, column)
+// pair, so neighbouring threads touch neighbouring columns.
 //
 // Layout: lo/hi are int64 tensors holding u32 words, row-major (n, C).
 // Twiddles: tw[k] = w^k for k < n/2 (w^-k for the inverse), as u64.
@@ -27,44 +53,134 @@
 #include "gl64.cuh"
 
 #define NTT_SMEM_MAX_N (1 << 14)
+#define NTT_THREADS 512
+#define NTT_TILE_COLS 4
 
 __device__ __forceinline__ int bitrev(int i, int log_n) {
   return log_n == 0 ? 0 : (int)(__brev((unsigned)i) >> (32 - log_n));
 }
 
-__global__ void ntt_smem_kernel(const int64_t* __restrict__ lo_in,
-                                const int64_t* __restrict__ hi_in,
-                                int64_t* __restrict__ lo_out,
-                                int64_t* __restrict__ hi_out,
-                                const uint64_t* __restrict__ tw, int log_n,
-                                int c, int inverse, uint64_t n_inv) {
-  extern __shared__ uint64_t s[];
-  const int col = blockIdx.x;
-  const int n = 1 << log_n;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    size_t src = (size_t)bitrev(i, log_n) * c + col;
-    s[i] = gl_join(lo_in[src], hi_in[src]);
-  }
-  __syncthreads();
-  for (int st = 0; st < log_n; st++) {
-    const int half = 1 << st;
-    for (int b = threadIdx.x; b < n / 2; b += blockDim.x) {
-      const int k = b & (half - 1);
-      const int i0 = ((b >> st) << (st + 1)) + k;
-      const int i1 = i0 + half;
-      const uint64_t t = gl_mul(s[i1], __ldg(&tw[(size_t)k << (log_n - 1 - st)]));
-      const uint64_t x0 = s[i0];
-      s[i0] = gl_add(x0, t);
-      s[i1] = gl_sub(x0, t);
+// shared-memory row of element i: one padding row after every 8
+__host__ __device__ __forceinline__ int ntt_pad(int i) { return i + (i >> 3); }
+
+// the tile's columns, [i + i/8][CT]
+extern __shared__ uint64_t ntt_smem[];
+
+struct NttTile {
+  const int64_t* lo_in;
+  const int64_t* hi_in;
+  int64_t* lo_out;
+  int64_t* hi_out;
+  const uint64_t* tw;  // the power table
+  int log_n, c, col0, log_ct, cw, inverse;
+  uint64_t n_inv;
+};
+
+// DIT stages st .. st+R-1 on the 2^R elements v[j] = x[base + j * 2^st] of
+// one group, k = base mod 2^st. FIRST (st = 0, so k = 0) skips the
+// multiplies by w^0 = 1.
+template <int R, bool FIRST>
+__device__ __forceinline__ void ntt_radix(uint64_t v[8], const NttTile& t, int st, int k) {
+  const int log_n = t.log_n;
+#pragma unroll
+  for (int q = 0; q < R; q++) {
+    const int h = 1 << q;
+    uint64_t w[4];
+#pragma unroll
+    for (int m = 0; m < h; m++) {
+      const int e = (k + (m << st)) << (log_n - 1 - st - q);
+      w[m] = FIRST && m == 0 ? 1 : __ldg(&t.tw[e]);
     }
+#pragma unroll
+    for (int j = 0; j < (1 << R); j++) {
+      if (j & h) continue;
+      const int m = j & (h - 1);
+      const uint64_t u = FIRST && m == 0 ? v[j + h] : gl_mul(v[j + h], w[m]);
+      const uint64_t x0 = v[j];
+      v[j] = gl_add(x0, u);
+      v[j + h] = gl_sub(x0, u);
+    }
+  }
+}
+
+// One pass: stages st .. st+R-1 for every group of the tile. The first pass
+// reads device memory (rows bit-reversed), the last writes it; the others
+// read and write shared memory in place (groups are disjoint).
+template <int R, bool FROM_GLOBAL, bool TO_GLOBAL>
+__device__ __forceinline__ void ntt_pass(const NttTile& t, int st) {
+  const int ct = 1 << t.log_ct;
+  const int groups = ct << (t.log_n - R);
+  for (int g = threadIdx.x; g < groups; g += blockDim.x) {
+    const int col = g & (ct - 1);
+    if (col >= t.cw) continue;
+    const int gi = g >> t.log_ct;
+    const int k = gi & ((1 << st) - 1);
+    const int base = ((gi >> st) << (st + R)) | k;
+    uint64_t v[8];
+#pragma unroll
+    for (int j = 0; j < (1 << R); j++) {
+      const int i = base + (j << st);
+      if (FROM_GLOBAL) {
+        const size_t src = (size_t)bitrev(i, t.log_n) * t.c + t.col0 + col;
+        v[j] = gl_join(t.lo_in[src], t.hi_in[src]);
+      } else {
+        v[j] = ntt_smem[ntt_pad(i) * ct + col];
+      }
+    }
+    ntt_radix<R, FROM_GLOBAL>(v, t, st, k);
+#pragma unroll
+    for (int j = 0; j < (1 << R); j++) {
+      const int i = base + (j << st);
+      if (TO_GLOBAL) {
+        const uint64_t x = t.inverse ? gl_mul(v[j], t.n_inv) : v[j];
+        const size_t dst = (size_t)i * t.c + t.col0 + col;
+        t.lo_out[dst] = (int64_t)(x & GL_EPS);
+        t.hi_out[dst] = (int64_t)(x >> 32);
+      } else {
+        ntt_smem[ntt_pad(i) * ct + col] = v[j];
+      }
+    }
+  }
+}
+
+__host__ __device__ __forceinline__ int ntt_passes(int log_n) {
+  return log_n <= 3 ? 1 : (log_n + 2) / 3;
+}
+
+__global__ void __launch_bounds__(NTT_THREADS) ntt_tile_kernel(
+    const int64_t* __restrict__ lo_in, const int64_t* __restrict__ hi_in,
+    int64_t* __restrict__ lo_out, int64_t* __restrict__ hi_out,
+    const uint64_t* __restrict__ tw, int log_n, int c, int log_ct, int inverse,
+    uint64_t n_inv) {
+  const int col0 = blockIdx.x << log_ct;
+  const int passes = ntt_passes(log_n);
+  const NttTile t{lo_in, hi_in, lo_out, hi_out, tw, log_n, c, col0, log_ct,
+                  min(1 << log_ct, c - col0), inverse, n_inv};
+  if (passes == 1) {
+    switch (log_n) {
+      case 0: ntt_pass<0, true, true>(t, 0); break;
+      case 1: ntt_pass<1, true, true>(t, 0); break;
+      case 2: ntt_pass<2, true, true>(t, 0); break;
+      default: ntt_pass<3, true, true>(t, 0); break;
+    }
+    return;
+  }
+  ntt_pass<3, true, false>(t, 0);
+  __syncthreads();
+  int st = 3;
+  for (int p = 1; p < passes - 1; p++, st += 3) {
+    ntt_pass<3, false, false>(t, st);
     __syncthreads();
   }
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    uint64_t v = inverse ? gl_mul(s[i], n_inv) : s[i];
-    size_t dst = (size_t)i * c + col;
-    lo_out[dst] = (int64_t)(v & GL_EPS);
-    hi_out[dst] = (int64_t)(v >> 32);
+  switch (log_n - st) {
+    case 1: ntt_pass<1, false, true>(t, st); break;
+    case 2: ntt_pass<2, false, true>(t, st); break;
+    default: ntt_pass<3, false, true>(t, st); break;
   }
+}
+
+static size_t ntt_tile_smem(int log_n, int log_ct) {
+  return ntt_passes(log_n) > 1 ? ((size_t)ntt_pad(1 << log_n) << log_ct) * sizeof(uint64_t) : 0;
 }
 
 __global__ void ntt_bitrev_kernel(const int64_t* __restrict__ lo_in,
@@ -123,16 +239,27 @@ extern "C" int bsx_ntt_cols(const int64_t* lo_in, const int64_t* hi_in,
   const int n = 1 << log_n;
   if (c <= 0) return 0;
   if (n <= NTT_SMEM_MAX_N) {
-    size_t smem = (size_t)n * sizeof(uint64_t);
+    int dev, max_smem;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (e != cudaSuccess) return (int)e;
+    int log_ct = 0;
+    while ((2 << log_ct) <= NTT_TILE_COLS && (2 << log_ct) <= c &&
+           ntt_tile_smem(log_n, log_ct + 1) <= (size_t)max_smem)
+      log_ct++;
+    const size_t smem = ntt_tile_smem(log_n, log_ct);
     if (smem > 48 * 1024) {
-      cudaError_t e = cudaFuncSetAttribute(
-          ntt_smem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          (int)smem);
+      e = cudaFuncSetAttribute(ntt_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
       if (e != cudaSuccess) return (int)e;
     }
-    int threads = n / 2 < 1 ? 1 : (n / 2 > 1024 ? 1024 : n / 2);
-    ntt_smem_kernel<<<c, threads, smem, st>>>(lo_in, hi_in, lo_out, hi_out, tw,
-                                              log_n, c, inverse, n_inv);
+    // enough threads for the widest radix-8 pass, in whole warps
+    const int groups = (1 << log_ct) << (log_n > 3 ? log_n - 3 : 0);
+    const int threads = groups >= NTT_THREADS ? NTT_THREADS : (groups + 31) / 32 * 32;
+    const unsigned tiles = (unsigned)((c + (1 << log_ct) - 1) >> log_ct);
+    ntt_tile_kernel<<<tiles, threads, smem, st>>>(lo_in, hi_in, lo_out, hi_out, tw,
+                                                  log_n, c, log_ct, inverse, n_inv);
     return (int)cudaGetLastError();
   }
   const unsigned threads = 256;

@@ -17,7 +17,11 @@ result):
      on the same seeded inputs (values near p, near 2^32 and 2^256, random
      valid curve points) at the main paths' shapes, among them Poseidon at
      config 4's (12, 2^21) and (12, 2^20) and the NTT at the FRI final
-     polynomial's (8, 1); mismatches (must be 0), the kernel's and the
+     polynomial's (8, 1), and at the edges of their designs: Poseidon at a
+     ragged batch ((12, 16383), (12, 1)), the NTT at a ragged last column
+     tile (2048, 2050), one-column tiles (2^14, 3), n = 1 (1, 4) and both
+     passes of an odd-log four-step ((1024, 2048), (2048, 1024));
+     mismatches (must be 0), the kernel's and the
      plain version's time by CUDA events, and the
      kernel's bound from its counted bytes and operations (the
      twiddle-transpose also beside a bare transpose copy, and the sqn chain
@@ -42,7 +46,8 @@ result):
      (default FriConfig) — then the checks: four-step == its plain version
      == ntt_cols of the (2^22, 1) column, inverse(forward) == identity, the
      codeword == lde_cols, fri_verify accepts the proof and rejects one
-     changed query pair; then CUDA-event times of the four-step (16
+     changed query pair, and the 2^21 four-step (an odd log n) forward and
+     inverse == their plain versions; then CUDA-event times of the four-step (16
      iterations each way, butterflies/s) and of its plain version, of the
      column path and of one
      fold of the codeword. One JSON line {"config4": {...}}.
@@ -197,6 +202,11 @@ def check_ntt(rng, dev):
         ((2048, 2048), False, "four-step pass at 2^22"),
         ((2048, 2048), True, "four-step inverse pass at 2^22"),
         ((8, 1), True, "FRI final-poly coset INTT"),
+        ((1024, 2048), False, "odd-log four-step first pass at 2^21"),
+        ((2048, 1024), True, "odd-log four-step inverse second pass at 2^21"),
+        ((2048, 2050), False, "ragged last column tile"),
+        ((1 << 14, 3), True, "one-column tiles at the largest shared-memory n"),
+        ((1, 4), False, "n = 1"),
     ]
     for (n, c), inverse, what in cases:
         x = gf64.from_u64(gl_values(rng, (n, c)), dev)
@@ -220,8 +230,9 @@ def check_poseidon(rng, dev):
     from blobstreamx_tpu_torch.ops import poseidon as pos
 
     rows = []
-    # config 5's grind batch; config 4's first FRI leaf hashes and its first compression
-    for n in (16384, 1 << 21, 1 << 20):
+    # config 5's grind batch, two ragged batches (not a multiple of the block);
+    # config 4's first FRI leaf hashes and its first compression
+    for n in (16384, 16383, 1, 1 << 21, 1 << 20):
         s = gf64.from_u64(gl_values(rng, (12, n)), dev)
         mism, err = gl_mismatch(pos._permute_cuda(s), pos.permute_plain(s))
         ms = time_ms(lambda: pos._permute_cuda(s), 20)
@@ -495,6 +506,30 @@ def config4_checks(x, coeffs, y, back, cw, proof, cfg, shift: int) -> dict:
     return out
 
 
+def odd_log_four_step(seed: int, log_n: int, iters: int) -> dict:
+    """The four-step at an odd log n, whose two passes have different shapes
+    ((n1, n2) then (n2, n1)): forward and inverse against the plain version
+    and the roundtrip against the input (mismatches, each must be 0), and
+    the forward's CUDA-event time."""
+    import numpy as np
+
+    from blobstreamx_tpu_torch.fields import gf64
+    from blobstreamx_tpu_torch.ops import ntt
+
+    rng = np.random.default_rng(seed)
+    x = gf64.from_u64(rng.integers(0, gf64.P, size=(1 << log_n,), dtype=np.uint64), "cuda")
+    y = ntt.ntt_four_step(x)
+    back = ntt.ntt_four_step(y, inverse=True)
+    out = {"log_n": log_n, "mismatches": {
+        "forward_vs_plain": gl_mismatch(y, ntt.ntt_four_step_plain(x))[0],
+        "inverse_vs_plain": gl_mismatch(back, ntt.ntt_four_step_plain(y, inverse=True))[0],
+        "roundtrip_vs_input": gl_mismatch(back, x)[0],
+    }}
+    ms = time_ms(lambda: ntt.ntt_four_step(x), iters)
+    out.update(ntt_wall_s=ms / 1e3, butterflies_per_s=ntt.butterfly_count(log_n) / (ms / 1e3))
+    return out
+
+
 def config4(smi: str, profile: bool = False):
     """Config 4 on the card: cold and warm runs of the path, launches and
     peak memory of the warm one, the checks, then CUDA-event times; with
@@ -540,6 +575,9 @@ def config4(smi: str, profile: bool = False):
     assert not any(checks["mismatches"].values()), f"config-4 outputs disagree: {checks['mismatches']}"
     assert checks["fri_verify_accepts"], "fri_verify rejected the config-4 proof"
     assert checks["fri_verify_rejects_tampered"], "fri_verify accepted a proof with a changed query pair"
+    odd = odd_log_four_step(c["seed"], log_n - 1, c["iters"])
+    log(f"  four-step 2^{log_n - 1}: {json.dumps(odd)}")
+    assert not any(odd["mismatches"].values()), f"the 2^{log_n - 1} four-step disagrees: {odd['mismatches']}"
 
     iters = c["iters"]
     ntt_ms = time_ms(lambda: ntt.ntt_four_step(x), iters)
@@ -562,6 +600,7 @@ def config4(smi: str, profile: bool = False):
         fri_prove_wall_s=fri_s, fri_prove_cold_s=cold[4], path_warm_s=warm_s, path_cold_s=cold_s,
         fri_verify_s=checks["fri_verify_s"], fri_config=dataclasses.asdict(cfg),
         launches=launches, peak_device_bytes=peak, resident_before_bytes=resident, card=smi,
+        odd_log_four_step=odd,
     )
     log(f"  four-step 2^{log_n}: forward {ntt_ms:.4f} ms ({rec['butterflies_per_s']:.4e} butterflies/s), "
         f"inverse {intt_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b:.6f} ms ({by}); ntt_cols of the "

@@ -34,7 +34,10 @@ def fe(rng, n):
     return f.from_int(vals, "cuda")
 
 
-@pytest.mark.parametrize("n,c,inverse", [(32, 8, True), (256, 8, False), (256, 2, True), (1 << 15, 4, False)])
+@pytest.mark.parametrize("n,c,inverse", [
+    (32, 8, True), (256, 8, False), (256, 2, True), (1 << 15, 4, False), (8, 1, True),
+    (2048, 2050, False), (1 << 14, 3, True), (1, 4, False), (1024, 2048, False), (2048, 1024, True),
+])
 def test_ntt_kernel(n, c, inverse):
     from blobstreamx_tpu_torch.ops import ntt
 
@@ -44,11 +47,12 @@ def test_ntt_kernel(n, c, inverse):
     assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
 
 
-def test_poseidon_kernel():
+@pytest.mark.parametrize("n", [4096, 16383, 1])
+def test_poseidon_kernel(n):
     from blobstreamx_tpu_torch.ops import poseidon as pos
 
     _card()
-    s = gl(np.random.default_rng(1), (12, 4096))
+    s = gl(np.random.default_rng(1), (12, n))
     k, p = pos._permute_cuda(s), pos.permute_plain(s)
     assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
 
@@ -93,7 +97,7 @@ def test_twiddle_transpose_kernel(n1, n2, inverse):
 
 
 @pytest.mark.parametrize("inverse", [False, True])
-@pytest.mark.parametrize("log_n", [5, 11, 22])
+@pytest.mark.parametrize("log_n", [5, 11, 21, 22])
 def test_ntt_four_step_on_the_card(log_n, inverse):
     from blobstreamx_tpu_torch import kernels
     from blobstreamx_tpu_torch.ops import ntt

@@ -4,12 +4,16 @@ the golden models, on the CPU, with exact equality. On CPU tensors the port's
 ntt_cols and permute run their plain versions, the code the CUDA kernels are
 held against on the card."""
 
+import re
+from pathlib import Path
+
 import jax
 import numpy as np
 import pytest
 import torch
 
 from blobstreamx_tpu.fields import gf64 as jgf
+from blobstreamx_tpu.golden import poseidon as jgold_pos
 from blobstreamx_tpu.ops import ntt as jntt, poseidon as jpos
 from blobstreamx_tpu_torch.fields import gf64 as tgf
 from blobstreamx_tpu_torch.golden import merkle as gmerkle, ntt as gntt, poseidon as gpos
@@ -107,6 +111,51 @@ def test_permute_matches_golden():
     got = port(s, fn=tpos.permute)
     for j in range(6):
         assert [int(v) for v in got[:, j]] == gpos.permute([int(v) for v in s[:, j]])
+
+
+def _kernel_mds_row() -> tuple:
+    """The circulant row that csrc/poseidon.cu's MDS multiplies by."""
+    src = (Path(tpos.__file__).resolve().parent.parent / "csrc" / "poseidon.cu").read_text()
+    return tuple(int(v) for v in re.search(r"const uint32_t C\[POS_WIDTH\] = \{([^}]*)\}", src).group(1).split(","))
+
+
+def test_poseidon_kernel_mds_coefficients_match_jax():
+    """The kernel's MDS coefficients are the JAX package's; the only diagonal
+    entry is row 0's 8, which the kernel folds into that row's first
+    coefficient; and a row's sum over 32-bit halves stays below 2^49, so
+    the kernel's u64 accumulators never carry."""
+    row = _kernel_mds_row()
+    assert row == tuple(jgold_pos.MDS_CIRC)
+    assert tuple(jgold_pos.MDS_DIAG) == (8,) + (0,) * 11
+    assert (sum(row) + 8) * ((1 << 32) - 1) < 1 << 49
+
+
+def _kernel_mds(state: list[int]) -> list[int]:
+    """csrc/poseidon.cu's MDS in Python integers with u64 wraparound: per row
+    a multiply-accumulate over the low and the high 32-bit halves, then one
+    reduction of lo_sum + hi_sum * 2^32; inputs and outputs are any u64
+    congruent mod p (the kernel keeps the state unreduced between rounds)."""
+    m64, eps, row = (1 << 64) - 1, (1 << 32) - 1, _kernel_mds_row()
+    out = []
+    for r in range(12):
+        coef = [row[0] + 8 if r == 0 and i == 0 else row[i] for i in range(12)]
+        al = sum(c * (state[(i + r) % 12] & eps) for i, c in enumerate(coef))
+        ah = sum(c * (state[(i + r) % 12] >> 32) for i, c in enumerate(coef))
+        t = (al + (ah << 32)) & m64
+        u = ((ah >> 32) + (t < al)) * eps
+        v = (t + u) & m64
+        out.append((v + eps) & m64 if v < u else v)
+    return out
+
+
+def test_poseidon_kernel_mds_arithmetic_matches_jax():
+    rng = np.random.default_rng(15)
+    states = [[(1 << 64) - 1] * 12, [P - 1] * 12, [P] * 12, [(1 << 32) - 1] * 12, [0] * 12]
+    states += [[int(v) for v in rng.integers(0, 1 << 64, 12, dtype=np.uint64)] for _ in range(50)]
+    for st in states:
+        got = _kernel_mds(st)
+        assert all(v < 1 << 64 for v in got)
+        assert [v % P for v in got] == jgold_pos._mds([v % P for v in st])
 
 
 @pytest.mark.parametrize("L", [1, 4, 8, 9, 20])
