@@ -46,10 +46,13 @@ SIGNATURES = {
         "bsx_ed25519_add": [_P] * 8 + [_P] * 4 + [_I, _P],
         "bsx_gf25519_pow22523": [_P, _P, _I, _P],
         "bsx_gf25519_sqn": [_P, _P, _I, _I, _P],
+        "bsx_launch_floor": [_P],
     },
 }
 
-launches = {"ntt": 0, "twiddle_transpose": 0, "poseidon": 0, "edwards_add": 0, "pow_chain": 0}
+# "ntt" counts the tile kernel (n <= 2^14), "ntt_multi" the multi-launch path
+# for longer columns (bit reversal, one launch a stage, store)
+launches = {"ntt": 0, "ntt_multi": 0, "twiddle_transpose": 0, "poseidon": 0, "edwards_add": 0, "pow_chain": 0}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

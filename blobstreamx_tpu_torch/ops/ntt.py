@@ -157,7 +157,7 @@ def _ntt_cols_cuda(x: Gl, inverse: bool) -> Gl:
             None if scratch is None else scratch.data_ptr(), kernels.stream_of(lo),
         )
     kernels.check(rc, "ntt kernel")
-    kernels.count("ntt")
+    kernels.count("ntt" if scratch is None else "ntt_multi")
     return out_lo, out_hi
 
 

@@ -21,11 +21,15 @@ result):
      ragged batch ((12, 16383), (12, 1)), the NTT at a ragged last column
      tile (2048, 2050), one-column tiles (2^14, 3), n = 1 (1, 4) and both
      passes of an odd-log four-step ((1024, 2048), (2048, 1024));
-     mismatches (must be 0), the kernel's and the
+     the Edwards add at config 5's lane counts 64, 1024, 4096 and 32768,
+     each with edge lanes (an identity operand, a doubling, p + (-p),
+     points of order 2 and 4, coordinates in [p, 2^256)), and pow22523 at
+     64 and 4096 lanes; mismatches (must be 0), the kernel's and the
      plain version's time by CUDA events, and the
      kernel's bound from its counted bytes and operations (the
-     twiddle-transpose also beside a bare transpose copy, and the sqn chain
-     timed at k = 1, 5 and 50);
+     twiddle-transpose also beside a bare transpose copy, the sqn chain
+     timed at k = 1, 5 and 50, and an empty kernel's launch through the
+     ed25519 library timed first as the launch floor, a yardstick);
   4. card vs CPU: the small chain of tests/test_pipeline.py proven on cuda
      and on cpu gives identical proof bytes (the CPU path is held
      byte-equal to the JAX package by the CPU tests);
@@ -35,9 +39,9 @@ result):
      be rejected), the TimingTree, each kernel's launches in the warm prove
      (each must be > 0) and the peak device memory;
   6. only with --profile: one more warm prove under torch.profiler (device
-     time by kernel, host time by operator, kernel launches, the device's
-     busy share of the wall), and the same for one more warm config-4 run
-     at the end of phase 7;
+     time by kernel, the Ed25519 kernels' total, host time by operator,
+     kernel launches, the device's busy share of the wall), and the same
+     for one more warm config-4 run at the end of phase 7;
   7. config 4 (benches/configs.py's config4: one 2^22 polynomial, numpy
      seed 0): a cold and a warm run of the path, the launches and peak
      device memory of the warm one (ntt, twiddle_transpose and poseidon must
@@ -116,6 +120,12 @@ def time_ms(fn, reps: int, warm: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def dev_us(e) -> float:
+    """A profiler event's own device time in microseconds (the attribute's
+    name differs between torch versions)."""
+    return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+
 def max_abs(a, b) -> float:
     return float((a - b).abs().max().item()) if a.numel() else 0.0
 
@@ -157,12 +167,15 @@ def fe_values(rng, n):
 
 def curve_lanes(rng, n):
     """(p, q) extended-coordinate point lanes as python ints: random points
-    with random projective scale, doublings (q = p), identity operands and
-    coordinates stored non-canonically (value + p) where that stays < 2^256."""
+    with random projective scale, and in every 16 lanes the edge lanes
+    beside them: a doubling (q = p), an identity operand, p + (-p), a point
+    of order 2 and one of order 4 added to itself; coordinates stored
+    semi-reduced (value + p) at random where that stays < 2^256."""
     from blobstreamx_tpu_torch.golden import ed25519 as ged
 
     Q = ged.Q
     base = [ged.point_mul(int.from_bytes(rng.bytes(32), "little") % ged.L, ged.BASE) for _ in range(64)]
+    order2, order4 = (0, Q - 1, 1, 0), (pow(2, (Q - 1) // 4, Q), 0, 1, 0)
 
     def scaled(pt, lam):
         return tuple(c * lam % Q for c in pt)
@@ -173,12 +186,19 @@ def curve_lanes(rng, n):
     ps, qs = [], []
     for j in range(n):
         p = scaled(base[j % 64], int(rng.integers(1, 1 << 62)))
+        lam = int(rng.integers(1, 1 << 62))
         if j % 16 == 0:
             q = p
         elif j % 16 == 1:
-            q = scaled(ged.IDENTITY, int(rng.integers(1, 1 << 62)))
+            q = scaled(ged.IDENTITY, lam)
+        elif j % 16 == 2:
+            q = scaled((Q - p[0], p[1], p[2], Q - p[3]), lam)
+        elif j % 16 == 3:
+            q = scaled(order2, lam)
+        elif j % 16 == 4:
+            p, q = scaled(order4, lam), order4
         else:
-            q = scaled(base[(7 * j + 3) % 64], int(rng.integers(1, 1 << 62)))
+            q = scaled(base[(7 * j + 3) % 64], lam)
         ps.append(lift(p))
         qs.append(lift(q))
     return ps, qs
@@ -292,26 +312,41 @@ def _field_mismatch(kernel_out, plain_out):
     return int(bad.sum().item()), max_abs(kernel_out, want)
 
 
+def launch_floor_ms() -> float:
+    """One empty kernel launched through the ed25519 library's C interface:
+    the yardstick beside the Ed25519 kernels' times (not a bound)."""
+    import torch
+
+    from blobstreamx_tpu_torch import kernels
+
+    lib, stream = kernels.load("ed25519"), torch.cuda.current_stream().cuda_stream
+    return time_ms(lambda: kernels.check(lib.bsx_launch_floor(stream), "launch floor"), 100)
+
+
 def check_edwards_add(rng, dev):
     from blobstreamx_tpu_torch.ops import curve25519 as curve
 
-    n = 4096
-    ps, qs = curve_lanes(rng, n)
-    p = tuple(_fe_tensor([pt[i] for pt in ps], dev) for i in range(4))
-    q = tuple(_fe_tensor([pt[i] for pt in qs], dev) for i in range(4))
-    k = curve._add_cuda(p, q)
-    pl = curve.add(p, q)
-    mism, err = 0, 0.0
-    for kc, pc in zip(k, pl):
-        m, e = _field_mismatch(kc, pc)
-        mism, err = mism + m, max(err, e)
-    ms = time_ms(lambda: curve._add_cuda(p, q), 20)
-    plain_ms = time_ms(lambda: curve.add(p, q), 3)
-    b, by = bound(12 * 16 * 8 * n, n * EDWARDS_ADD_MULS * FE_MUL_OPS)
-    log(f"  edwards add ({n} lanes): mismatches {mism}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"bound {b:.6f} ms ({by})")
-    assert mism == 0, "edwards-add kernel disagrees with the plain version"
-    return [dict(shape=f"{n} lanes", max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by)]
+    rows = []
+    # config 5's lane counts: the last fold (64), the suffix scan (1024), the
+    # bucket accumulation (4096) and the largest fold (32768)
+    for n in (64, 1024, 4096, 32768):
+        ps, qs = curve_lanes(rng, n)
+        p = tuple(_fe_tensor([pt[i] for pt in ps], dev) for i in range(4))
+        q = tuple(_fe_tensor([pt[i] for pt in qs], dev) for i in range(4))
+        k = curve._add_cuda(p, q)
+        pl = curve.add(p, q)
+        mism, err = 0, 0.0
+        for kc, pc in zip(k, pl):
+            m, e = _field_mismatch(kc, pc)
+            mism, err = mism + m, max(err, e)
+        ms = time_ms(lambda: curve._add_cuda(p, q), 20)
+        plain_ms = time_ms(lambda: curve.add(p, q), 3)
+        b, by = bound(12 * 16 * 8 * n, n * EDWARDS_ADD_MULS * FE_MUL_OPS)
+        log(f"  edwards add ({n} lanes): mismatches {mism}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {b:.6f} ms ({by})")
+        assert mism == 0, f"edwards-add kernel disagrees with the plain version at {n} lanes"
+        rows.append(dict(shape=f"{n} lanes", max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by))
+    return rows
 
 
 def check_pow_chain(rng, dev):
@@ -626,10 +661,6 @@ def profile_warm(what: str, run):
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
     ka = prof.key_averages()
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-
     # device kernels only (operator rows would count each kernel twice)
     kernel_rows = [e for e in ka if e.device_type == DeviceType.CUDA]
     device_us = sum(dev_us(e) for e in kernel_rows)
@@ -641,6 +672,9 @@ def profile_warm(what: str, run):
     for e in sorted(kernel_rows, key=dev_us, reverse=True):
         if any(e.key.startswith(o) for o in ours):
             log(f"  hand kernel {e.key}: {e.count} launches, {dev_us(e) / 1e3:.3f} ms device time")
+    ed = [e for e in kernel_rows if e.key.startswith(("edwards_add_kernel", "pow22523_kernel", "sqn_kernel"))]
+    log(f"  Ed25519 kernels (edwards add, power chain): {sum(e.count for e in ed)} launches, "
+        f"{sum(dev_us(e) for e in ed) / 1e3:.4f} ms device time")
     sort_dev = "self_device_time_total" if hasattr(ka[0], "self_device_time_total") else "self_cuda_time_total"
     log(ka.table(sort_by=sort_dev, row_limit=15, max_name_column_width=60))
     log(ka.table(sort_by="self_cpu_time_total", row_limit=15, max_name_column_width=60))
@@ -676,6 +710,8 @@ def main() -> int:
                 log(f"  {src}.cu: {line.strip()}")
 
     log("[3] kernel checks (kernel vs plain PyTorch on the card, exact)")
+    floor_ms = launch_floor_ms()
+    log(f"  launch floor (one empty kernel through the ed25519 library): {floor_ms:.4f} ms")
     rng = np.random.default_rng(2024)
     rows = {}
     for k in KERNELS:
@@ -708,6 +744,8 @@ def main() -> int:
                      max_abs_err=max(r["max_abs_err"] for r in rows[k["name"]]))
         entry.update({key: main_row[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")})
         entry.update(library_ms=None, shape=main_row["shape"])
+        if k["source"].endswith("ed25519.cu"):
+            entry["launch_floor_ms"] = floor_ms
         entry["other_shapes"] = [r for r in rows[k["name"]] if r is not main_row]
         out.append(entry)
     log(json.dumps({"kernels": out}))

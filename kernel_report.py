@@ -1,29 +1,35 @@
 #!/usr/bin/env python3
-"""SASS instruction counts and times of the Poseidon and NTT kernels
-(blobstreamx_tpu_torch/csrc/poseidon.cu, ntt.cu) on one NVIDIA card, beside
-the same kernels of other source trees.
+"""SASS instruction counts and times of the port's CUDA kernels
+(blobstreamx_tpu_torch/csrc/poseidon.cu, ntt.cu, ed25519.cu) on one NVIDIA
+card, beside the same kernels of other source trees.
 
 Run from the repository root:
 
     python3 kernel_report.py [--baseline CSRC_DIR]...
 
 It compiles, one nvcc per library and all started together, into
-build/kernel_report/ the poseidon.cu and ntt.cu of this checkout and of
-every --baseline directory (an earlier design behind the same C entry
-points, for example another checkout's blobstreamx_tpu_torch/csrc).
+build/kernel_report/ the poseidon.cu, ntt.cu and ed25519.cu of this checkout
+and those of every --baseline directory that holds them (an earlier or
+another design behind the same C entry points, for example another
+checkout's blobstreamx_tpu_torch/csrc), and for each ed25519.cu a probe
+library (PROBE) that wraps its field multiply and squaring in small kernels.
 
 For each library it prints the registers per thread and spills (ptxas -v),
 and for each kernel the SASS instructions (cuobjdump -sass; NOP padding not
 counted) and its loops: every backward branch, with the instructions of its
 body. From those it prints, for Poseidon, the instructions one thread
 executes per permutation (the static count, plus each of the three round
-loops' bodies once more per extra trip: 4, 22, 4 trips), and for the NTT
-the instructions per butterfly of the whole kernel at (2048, 2048) forward
-(see ntt_count). Then it times every library's kernel by CUDA events at the
-shapes of chip_smoke.py's phase 3, in the order this checkout, baselines,
-baselines reversed, this checkout (each time the mean of its two turns),
-and holds every output equal to this checkout's kernel (which chip_smoke.py
-holds equal to the plain PyTorch version). The last line is one JSON
+loops' bodies once more per extra trip: 4, 22, 4 trips), for the NTT the
+instructions per butterfly of the whole kernel at (2048, 2048) forward
+(see ntt_count), and for ed25519.cu the instructions per field multiply,
+per squaring, per Edwards add and per pow22523 chain (see ed_count). Then
+it times every library's kernel at the shapes of chip_smoke.py's phase 3,
+in the order this checkout, baselines, baselines reversed, this checkout,
+each time the mean of its two turns, both by CUDA events over back-to-back
+calls and as device time under torch.profiler (see device_ms); it holds
+every output equal to this checkout's kernel (which chip_smoke.py holds
+equal to the plain PyTorch version), and times one empty launch of this
+checkout's ed25519 library (the launch floor). The last line is one JSON
 object; the same object is written to chiprun_out/kernel_report.json, and
 each library's kernel SASS to chiprun_out/sass/.
 """
@@ -49,6 +55,23 @@ NTT_SHAPES = (
     (2048, 2048, False), (2048, 2048, True), (1024, 2048, False), (2048, 1024, False),
     (2048, 2050, False), (1 << 14, 3, True),
 )
+ED_LANES = (64, 1024, 4096, 32768)  # the Edwards add's lane counts on config 5's path
+CHAIN_CASES = ((None, 64), (None, 4096), (1, 64), (5, 64), (50, 64))  # (sqn k, or pow22523; lanes)
+POW22523_SQUARINGS, POW22523_MULS = 251, 11
+# Small kernels around one library's field operations: the static SASS count
+# of *2 minus that of *1 is one multiply (one squaring) in the same context.
+PROBE = """#include "ed25519.cu"
+#define PROBE(name, expr) \\
+  __global__ void name(const int64_t* a, const int64_t* b, int64_t* o, int n) { \\
+    const int j = threadIdx.x; \\
+    const fe x = fe_load(a, n, j), y = fe_load(b, n, j); \\
+    fe_store(o, n, j, expr); \\
+  }
+PROBE(probe_mul1, fe_mul(x, y))
+PROBE(probe_mul2, fe_mul(fe_mul(x, y), y))
+PROBE(probe_sq1, SQ(x))
+PROBE(probe_sq2, SQ(SQ(x)))
+"""
 SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
 BRANCH_TARGET = re.compile(r"\bBRA(?:\.\w+)*\s+(?:`\(\.L_x_\d+\)|0x([0-9a-f]+))")
 
@@ -57,24 +80,41 @@ def log(*a):
     print(*a, flush=True)
 
 
+SOURCES = ("poseidon", "ntt", "ed25519")
+
+
 def libraries(baselines: list[str]):
-    """(label, kernel, source dir) of every library to build."""
+    """(label, kernel, source dir) of every library to build: this
+    checkout's sources, and each --baseline directory's that it holds."""
     csrc = ROOT / "blobstreamx_tpu_torch" / "csrc"
-    libs = [("shipped", k, csrc) for k in ("poseidon", "ntt")]
+    libs = [("shipped", k, csrc) for k in SOURCES]
     for d in baselines:
-        libs += [(d, k, Path(d)) for k in ("poseidon", "ntt")]
+        libs += [(d, k, Path(d)) for k in SOURCES if (Path(d) / f"{k}.cu").exists()]
     return libs
 
 
+def probe_source(src: Path) -> str:
+    """PROBE for one ed25519.cu; a design without fe_sq squares with fe_mul."""
+    sq = "fe_sq(v)" if "fe_sq(" in (src / "ed25519.cu").read_text() else "fe_mul(v, v)"
+    return f"#define SQ(v) {sq}\n" + PROBE
+
+
 def build(libs) -> dict:
+    """Compile every library, and a probe library beside each ed25519.cu
+    (under the name "ed25519_probe"), all at once."""
     from blobstreamx_tpu_torch import kernels
 
     OUT_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
+    jobs = []
     for i, (label, name, src) in enumerate(libs):
-        out = OUT_DIR / f"lib{name}-{i}.so"
-        cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-I", str(src),
-               "-o", str(out), str(src / f"{name}.cu")]
+        jobs.append((label, name, src, src / f"{name}.cu", OUT_DIR / f"lib{name}-{i}.so"))
+        if name == "ed25519":
+            probe = OUT_DIR / f"ed25519_probe-{i}.cu"
+            probe.write_text(probe_source(src))
+            jobs.append((label, "ed25519_probe", src, probe, OUT_DIR / f"libed25519_probe-{i}.so"))
+    procs = {}
+    for label, name, src, cu, out in jobs:
+        cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-I", str(src), "-o", str(out), str(cu)]
         procs[(label, name)] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
                                 out)
     built = {}
@@ -87,7 +127,9 @@ def build(libs) -> dict:
 
 
 def ptxas_lines(text: str) -> list[str]:
-    return [line.strip() for line in text.splitlines() if "registers" in line or "spill" in line]
+    """ptxas -v's lines naming each kernel, its registers and its spills."""
+    return [line.strip() for line in text.splitlines()
+            if "Compiling entry function" in line or "registers" in line or "spill" in line]
 
 
 def sass(lib: Path) -> dict:
@@ -213,25 +255,58 @@ def ntt_count(fn: str, instrs, found: list[dict], log_n: int = 11, c: int = 2048
                 loop_body_per_butterfly=per_trip)
 
 
+def ed_count(probe: dict, add_static: int | None) -> dict | None:
+    """SASS instructions of one ed25519.cu design: per field multiply and per
+    squaring (PROBE: the static count of probe_*2 minus probe_*1), per
+    Edwards add (the static count of edwards_add_kernel: one lane's work,
+    its four roles' code counted once each, the shared code once), and per
+    pow22523 chain, from those: 251 squarings, 11 multiplies and once the
+    load, the canonical store and the indexing around them (probe_sq1
+    without its squaring)."""
+    sizes = {}
+    for fn, instrs in probe.items():
+        m = re.search(r"probe_(mul|sq)([12])", fn)
+        if m:
+            sizes[m.group(0)] = len(instrs)
+    if len(sizes) != 4:
+        return None
+    mul = sizes["probe_mul2"] - sizes["probe_mul1"]
+    sq = sizes["probe_sq2"] - sizes["probe_sq1"]
+    io = sizes["probe_sq1"] - sq
+    return dict(per_multiply=mul, per_squaring=sq, load_store=io, per_edwards_add=add_static,
+                per_pow22523_chain=POW22523_SQUARINGS * sq + POW22523_MULS * mul + io)
+
+
 def per_permutation(static: int, round_loops: list[dict]) -> int | None:
     if len(round_loops) != 3:
         return None
     return static + sum(lp["instructions"] * (t - 1) for lp, t in zip(round_loops, (4, 22, 4)))
 
 
-def time_ms(fn, reps: int) -> float:
+def device_ms(fn, reps: int, tries: int = 3) -> float | None:
+    """The device time of the kernels `fn` launches, per call: their
+    durations under torch.profiler over `reps` calls, over `reps`. Unlike
+    CUDA events around back-to-back calls it leaves out the host's time
+    between launches, which is what such a loop measures for a kernel
+    shorter than its launch. A profile that recorded no kernel is taken
+    again; None if none of `tries` did."""
     import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(3):
-        fn()
+    from chip_smoke import dev_us
+
+    fn()
     torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        if sum(e.count for e in kernels) >= reps:
+            return sum(dev_us(e) for e in kernels) / 1e3 / reps
+    return None
 
 
 def main() -> int:
@@ -246,10 +321,11 @@ def main() -> int:
     from blobstreamx_tpu_torch.fields import gf64
     from blobstreamx_tpu_torch.golden import goldilocks as gold
     from blobstreamx_tpu_torch.ops import ntt, poseidon as pos
+    from chip_smoke import time_ms
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--baseline", action="append", default=[],
-                    help="a csrc/ directory holding an earlier poseidon.cu and ntt.cu (repeatable)")
+                    help="a csrc/ directory holding other designs' poseidon.cu, ntt.cu or ed25519.cu (repeatable)")
     args = ap.parse_args()
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -260,27 +336,33 @@ def main() -> int:
     SASS_DIR.mkdir(parents=True, exist_ok=True)
     report = {"card": smi, "libraries": []}
     handles = {}
+    probes = {label: sass(built[(label, "ed25519_probe")][0]) for label, name, _s in libs if name == "ed25519"}
     for label, name, _src in libs:
         path, text = built[(label, name)]
         entry = dict(label=label, source=name, ptxas=ptxas_lines(text), kernels={})
         dump = []
         for fn, instrs in sass(path).items():
-            if not any(k in fn for k in ("poseidon_kernel", "ntt_smem_kernel", "ntt_tile_kernel")):
+            if not any(k in fn for k in ("poseidon_kernel", "ntt_smem_kernel", "ntt_tile_kernel", "edwards_add_kernel",
+                                         "pow22523_kernel", "sqn_kernel")):
                 continue
             dump += [f"Function : {fn}"] + [f"/*{a:04x}*/ {t}" for a, t in instrs]
             k = dict(static_instructions=len(instrs), loops=loops(instrs))
             if "poseidon_kernel" in fn:
                 k["per_permutation"] = per_permutation(len(instrs), k["loops"])
-            else:
+            elif "ntt_" in fn:
                 k["per_butterfly"] = ntt_count(fn, instrs, k["loops"])
             entry["kernels"][fn] = k
+        if name == "ed25519":
+            add = [k["static_instructions"] for fn, k in entry["kernels"].items() if "edwards_add_kernel" in fn]
+            entry["field_counts"] = ed_count(probes[label], add[0] if add else None)
         report["libraries"].append(entry)
         (SASS_DIR / f"{path.stem}.sass.txt").write_text("\n".join(dump) + "\n")
         log(f"{name} [{label}]: " + json.dumps(entry))
         lib = ctypes.CDLL(str(path))
         for fn, argtypes in kernels.SIGNATURES[name].items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
+            f = getattr(lib, fn, None)  # an earlier design may lack an entry (the launch floor)
+            if f is not None:
+                f.argtypes, f.restype = argtypes, ctypes.c_int
         if name == "poseidon":
             rc = np.ascontiguousarray(pos._round_constants_np())
             kernels.check(lib.bsx_poseidon_set_round_constants(rc.ctypes.data), "poseidon constants")
@@ -305,30 +387,67 @@ def main() -> int:
                                        gold.inv(n % gold.P) if inverse else 1, None, stream), "ntt")
         return out
 
+    def add_call(lib, coords):
+        n = coords[0].shape[1]
+        outs = tuple(torch.empty_like(coords[0]) for _ in range(4))
+        kernels.check(lib.bsx_ed25519_add(*(c.data_ptr() for c in coords), *(o.data_ptr() for o in outs), n,
+                                          stream), "edwards add")
+        return outs
+
+    def chain_call(lib, a, k):
+        out = torch.empty_like(a)
+        n = a.shape[1]
+        rc = lib.bsx_gf25519_pow22523(a.data_ptr(), out.data_ptr(), n, stream) if k is None else \
+            lib.bsx_gf25519_sqn(a.data_ptr(), out.data_ptr(), n, k, stream)
+        kernels.check(rc, "power chain")
+        return (out,)
+
+    def fe_limbs(count, n):
+        """count (16, n) tensors of random 16-bit limbs: values below 2^256."""
+        return [torch.from_numpy(rng.integers(0, 1 << 16, size=(16, n), dtype=np.int64)).cuda() for _ in range(count)]
+
     cases = [("poseidon", f"(12, {n})", (12, n), None) for n in POSEIDON_SHAPES]
     cases += [("ntt", f"({n}, {c}) {'inverse' if inv else 'forward'}", (n, c), inv) for n, c, inv in NTT_SHAPES]
+    cases += [("ed25519", f"edwards add, {n} lanes", n, "add") for n in ED_LANES]
+    cases += [("ed25519", f"{'pow22523' if k is None else f'sqn k={k}'}, {n} lanes", n, k) for k, n in CHAIN_CASES]
     times = []
-    for name, shape, dims, inverse in cases:
-        x = gf64.from_u64(rng.integers(0, gf64.P, size=dims, dtype=np.uint64), "cuda")
+    for name, shape, dims, arg in cases:
+        if name == "ed25519":
+            x = fe_limbs(8, dims) if arg == "add" else fe_limbs(1, dims)[0]
+            size = 1
+        else:
+            x = gf64.from_u64(rng.integers(0, gf64.P, size=dims, dtype=np.uint64), "cuda")
+            size = dims[0] * dims[1]
         labels = [label for label, nm, _s in libs if nm == name]
         order = labels + labels[::-1]
 
         def call(label):
             lib = handles[(label, name)]
-            return poseidon_call(lib, x) if name == "poseidon" else ntt_call(lib, x, inverse)
+            if name == "poseidon":
+                return poseidon_call(lib, x)
+            if name == "ntt":
+                return ntt_call(lib, x, arg)
+            return add_call(lib, x) if arg == "add" else chain_call(lib, x, arg)
 
         want = call("shipped")
-        reps = 20 if dims[0] * dims[1] <= 1 << 20 else 5
-        row = dict(kernel=name, shape=shape, ms={}, mismatches={})
+        reps = 20 if size <= 1 << 20 else 5
+        row = dict(kernel=name, shape=shape, ms={}, device_ms={}, mismatches={})
+        turns = {label: ([], []) for label in labels}
         for label in order:
             got = call(label)
-            row["mismatches"][label] = int(((got[0] != want[0]) | (got[1] != want[1])).sum().item())
-            ms = time_ms(lambda: call(label), reps)
-            row["ms"][label] = row["ms"].get(label, 0.0) + ms / 2
+            row["mismatches"][label] = sum(int((g != w).sum().item()) for g, w in zip(got, want))  # words
+            turns[label][0].append(time_ms(lambda: call(label), reps))
+            turns[label][1].append(device_ms(lambda: call(label), reps))
+        for label, (events, device) in turns.items():
+            row["ms"][label] = sum(events) / 2
+            row["device_ms"][label] = None if None in device else sum(device) / 2
         log(json.dumps(row))
         assert not any(row["mismatches"].values()), f"a baseline disagrees with the shipped kernel: {row}"
         times.append(row)
         del x
+    floor = handles[("shipped", "ed25519")].bsx_launch_floor
+    report["launch_floor_ms"] = time_ms(lambda: kernels.check(floor(stream), "launch floor"), 100)
+    log(f"launch floor (one empty kernel through ctypes): {report['launch_floor_ms']:.4f} ms")
     report["times"] = times
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

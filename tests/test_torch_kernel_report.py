@@ -1,7 +1,7 @@
 """kernel_report.py's SASS accounting on synthetic cuobjdump listings (no
 card, no nvcc): the listing parser, loop detection, the instructions per
-Poseidon permutation and the NTT's whole-kernel instructions per
-butterfly."""
+Poseidon permutation, the NTT's whole-kernel instructions per butterfly,
+the Ed25519 counts from the probe kernels, and the ptxas lines kept."""
 
 import pytest
 
@@ -103,3 +103,42 @@ def test_ntt_count_whole_kernel_per_butterfly(fn, instrs, parts, threads, butter
 ])
 def test_ntt_count_none_without_its_loops(fn, instrs):
     assert kr.ntt_count(fn, instrs, kr.loops(instrs)) is None
+
+
+def probe_listing(sizes: dict) -> dict:
+    """{mangled probe kernel: [(address, text)]} with the given instruction counts."""
+    return {f"_Z10{name}PKlS0_Pli": [(16 * i, "IMAD R0, R1, R2, R3") for i in range(count)]
+            for name, count in sizes.items()}
+
+
+@pytest.mark.parametrize("sizes, add_static, want", [
+    # mul2 - mul1 = 160 a multiply, sq2 - sq1 = 130 a squaring, sq1 - 130 = 70
+    # around them; the chain: 251 squarings + 11 multiplies + 70
+    ({"probe_mul1": 300, "probe_mul2": 460, "probe_sq1": 200, "probe_sq2": 330}, 1234,
+     dict(per_multiply=160, per_squaring=130, load_store=70, per_edwards_add=1234,
+          per_pow22523_chain=251 * 130 + 11 * 160 + 70)),
+    ({"probe_mul1": 300, "probe_mul2": 460, "probe_sq1": 200}, 1234, None),
+])
+def test_ed_count_from_probe_kernels(sizes, add_static, want):
+    assert kr.ed_count(probe_listing(sizes), add_static) == want
+
+
+@pytest.mark.parametrize("text, square", [("fe fe_sq(const fe& a) {}", "fe_sq(v)"), ("fe fe_mul(fe a, fe b) {}", "fe_mul(v, v)")])
+def test_probe_squares_with_the_design_s_own_squaring(tmp_path, text, square):
+    (tmp_path / "ed25519.cu").write_text(text)
+    src = kr.probe_source(tmp_path)
+    assert src.startswith(f"#define SQ(v) {square}\n#include \"ed25519.cu\"")
+    assert all(f"PROBE({p}," in src for p in ("probe_mul1", "probe_mul2", "probe_sq1", "probe_sq2"))
+
+
+def test_ptxas_lines_keep_each_kernel_s_name():
+    log = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z10sqn_kernelPKlPlii' for 'sm_90a'
+ptxas info    : Function properties for _Z10sqn_kernelPKlPlii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, 376 bytes cmem[0]"""
+    assert kr.ptxas_lines(log) == [
+        "ptxas info    : Compiling entry function '_Z10sqn_kernelPKlPlii' for 'sm_90a'",
+        "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 40 registers, 376 bytes cmem[0]",
+    ]

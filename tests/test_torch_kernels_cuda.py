@@ -30,7 +30,7 @@ def fe(rng, n):
     from blobstreamx_tpu_torch.fields import gf25519 as f
 
     vals = [int.from_bytes(rng.bytes(32), "little") for _ in range(n)]
-    vals[:4] = [0, f.Q - 1, f.Q, (1 << 256) - 1]
+    vals[:8] = [0, 1, f.Q - 1, f.Q, f.Q + 18, (1 << 255) - 1, (1 << 256) - 1, 2 * f.Q][:n]
     return f.from_int(vals, "cuda")
 
 
@@ -57,27 +57,46 @@ def test_poseidon_kernel(n):
     assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
 
 
-def test_edwards_add_kernel():
-    from blobstreamx_tpu_torch.fields import gf25519 as f
+def add_lanes(rng, n):
+    """n (p, q) lanes of extended coordinates as ints: the edge lanes first
+    (an identity operand, a doubling, p + (-p), points of order 2 and 4,
+    coordinates stored semi-reduced in [p, 2^256)), then random points with
+    random projective scale."""
     from blobstreamx_tpu_torch.golden import ed25519 as ged
+
+    Q = ged.Q
+    pts = [ged.point_mul(int(rng.integers(1, 1 << 62)), ged.BASE) for _ in range(16)]
+    neg = (Q - pts[0][0], pts[0][1], pts[0][2], Q - pts[0][3])
+    i4 = (pow(2, (Q - 1) // 4, Q), 0, 1, 0)
+    semi = [tuple(c + Q if c + Q < 1 << 256 else c for c in pt) for pt in pts[:2]]
+    lanes = [(pts[0], ged.IDENTITY), (pts[0], pts[0]), (pts[0], neg), (pts[0], (0, Q - 1, 1, 0)), (i4, i4),
+             (semi[0], semi[1])]
+    while len(lanes) < n:
+        lam = int(rng.integers(1, 1 << 62))
+        lanes.append((tuple(c * lam % Q for c in pts[len(lanes) % 16]), pts[(7 * len(lanes) + 3) % 16]))
+    return lanes[:n]
+
+
+@pytest.mark.parametrize("n", [1, 33, 64, 1024, 4096, 32768])
+def test_edwards_add_kernel(n):
+    from blobstreamx_tpu_torch.fields import gf25519 as f
     from blobstreamx_tpu_torch.ops import curve25519 as curve
 
     _card()
-    rng = np.random.default_rng(2)
-    pts = [ged.point_mul(int(rng.integers(1, 1 << 62)), ged.BASE) for _ in range(256)]
-    p = tuple(f.from_int([pt[i] for pt in pts], "cuda") for i in range(4))
-    q = tuple(c.roll(1, dims=1) for c in p)
+    lanes = add_lanes(np.random.default_rng(n), n)
+    p = tuple(f.from_int([pq[0][i] for pq in lanes], "cuda") for i in range(4))
+    q = tuple(f.from_int([pq[1][i] for pq in lanes], "cuda") for i in range(4))
     k, pl = curve._add_cuda(p, q), curve.add(p, q)
     for kc, pc in zip(k, pl):
         assert torch.equal(kc, f.canonicalize(pc)) and torch.equal(kc, f.canonicalize(kc))
 
 
-@pytest.mark.parametrize("k", [None, 1, 5, 50])
-def test_power_chain_kernel(k):
+@pytest.mark.parametrize("k,n", [(None, 64), (None, 4096), (None, 33), (1, 64), (5, 64), (50, 64)])
+def test_power_chain_kernel(k, n):
     from blobstreamx_tpu_torch.fields import gf25519 as f
 
     _card()
-    a = fe(np.random.default_rng(3), 64)
+    a = fe(np.random.default_rng(3), n)
     got = f._chain_cuda(a, k)
     want = f.pow22523_plain(a) if k is None else f.sqn_plain(a, k)
     assert torch.equal(got, f.canonicalize(want)) and torch.equal(got, f.canonicalize(got))
