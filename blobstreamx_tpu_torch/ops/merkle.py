@@ -50,7 +50,12 @@ def tree_layers(leaves: Gl, cap_height: int = 0):
     """All tree layers as a tuple (leaf digests ... cap)."""
     n = leaves[0].shape[1]
     assert n & (n - 1) == 0 and (1 << cap_height) <= n
-    layer = pos.hash_columns(leaves)
+    return digest_layers(pos.hash_columns(leaves), cap_height)
+
+
+def digest_layers(layer: Gl, cap_height: int = 0):
+    """Leaf digests (4, n) -> all layers up to the cap, by pairwise
+    compression (the streamed commit hashes its leaves itself)."""
     layers = [layer]
     while layer[0].shape[1] > (1 << cap_height):
         lo, hi = layer

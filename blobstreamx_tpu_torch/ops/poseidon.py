@@ -10,9 +10,10 @@ kernel (csrc/poseidon.cu), on a CPU tensor it runs ``permute_plain``.
 MDS in the plain version (the circulant matrix's entries are all powers of
 two): ``out[r] = Σ_i state[(i+r) mod 12] << K[i]  (+ 8*state[0] for r=0)``.
 Each state word is split into four 16-bit limbs; the shifted limbs of all
-13 terms accumulate in int64 columns of 16-bit significance (each column
-stays below 2^16 · Σ 2^(K mod 16) < 2^29), one carry pass turns them into words, and one
-128 -> 64 reduction per row finishes.
+13 terms accumulate in columns of 16-bit significance — one (72, 48) matrix
+of powers of two times the (48, N) limbs, in float64, exact because every
+column stays below 2^16 · Σ 2^(K mod 16) < 2^29 — one carry pass turns them
+into words, and one 128 -> 64 reduction per row finishes.
 
 Golden oracle: blobstreamx_tpu_torch.golden.poseidon (bit-exact).
 """
@@ -60,24 +61,31 @@ def _sbox(x: Gl) -> Gl:
     return gl_mul(gl_square(x3), x)
 
 
+@lru_cache(maxsize=None)
+def _mds_limb_matrix(device: str) -> torch.Tensor:
+    """(6*12, 4*12) float64: column c of output row r takes limb li of state
+    word (r+i) mod 12 times 2^(K[i] mod 16) where li + K[i] // 16 = c."""
+    a = np.zeros((6, WIDTH, 4, WIDTH), np.float64)
+    for r in range(WIDTH):
+        terms = [((r + i) % WIDTH, k) for i, k in enumerate(MDS_LOG)]
+        if r == 0:
+            terms.append((0, DIAG_LOG))
+        for j, k in terms:
+            q, sh = divmod(k, 16)
+            for li in range(4):
+                a[li + q, r, li, j] += 2.0**sh
+    return torch.from_numpy(a.reshape(6 * WIDTH, 4 * WIDTH)).to(device)
+
+
 def _mds(state: Gl) -> Gl:
     lo, hi = state
-    limbs = torch.stack([lo & M16, lo >> 16, hi & M16, hi >> 16])  # (4, 12, N)
-    cols = [None] * 6
-    terms = [(torch.roll(limbs, -i, dims=1), k) for i, k in enumerate(MDS_LOG)]
-    diag = torch.zeros_like(limbs)
-    diag[:, 0] = limbs[:, 0]
-    terms.append((diag, DIAG_LOG))
-    for rolled, k in terms:
-        q, r = divmod(k, 16)
-        for li in range(4):
-            term = rolled[li] << r
-            c = li + q
-            cols[c] = term if cols[c] is None else cols[c] + term
+    n = lo.shape[1]
+    limbs = torch.stack([lo & M16, lo >> 16, hi & M16, hi >> 16]).reshape(4 * WIDTH, n)
+    cols = (_mds_limb_matrix(str(lo.device)) @ limbs.double()).long().reshape(6, WIDTH, n)
     words = []
     carry = 0
     for c in range(6):
-        tot = carry if cols[c] is None else cols[c] + carry
+        tot = cols[c] + carry
         words.append(tot & M16)
         carry = tot >> 16
     # value < 2^85: words 0..5 plus the final carry hold it (n3 = 0)

@@ -1,4 +1,4 @@
-"""The skip prover pipeline at the default trust tier.
+"""The skip prover pipeline: the default trust tier and the SHA-256 tier.
 
 Pipeline for one skip proof:
 
@@ -6,20 +6,36 @@ Pipeline for one skip proof:
   consensus device: valset hashing, Ed25519 MSM batch, inclusion folds,
             chain links, power sums, data commitment
   trace     host: lay out the consensus-arithmetic execution trace
+  sha_stark device (with_sha_stark=True): the batched SHA-256 STARK over
+            every hash of the data-commitment tuple tree
   stark     device: DEEP-ALI prove over SkipAir
 
-Trust model (the default tier): the DEEP-ALI STARK proves the *consensus
-arithmetic* — boolean signer masks, voting-power accumulators, their claimed
-totals — over a committed trace whose public inputs bind the trusted/target
-roots, heights, and the data commitment into the Fiat-Shamir transcript.
-Hash/signature facts are established by bit-exact deterministic device
-recomputation. The proof bytes equal the JAX package's default-tier proof
-for the same witness and config, and either package's verifier accepts the
-other's proofs.
+Trust model:
 
-verify_skip_proof() re-checks the STARK, the threshold inequalities over the
-public integers, the (zero) aux-claim digest words, and — given the claimed
-witness data — the signer/power binding.
+  default              the DEEP-ALI STARK proves the *consensus arithmetic*
+                       — boolean signer masks, voting-power accumulators,
+                       their claimed totals — over a committed trace whose
+                       public inputs bind the trusted/target roots, heights,
+                       and the data commitment into the Fiat-Shamir
+                       transcript. Hash/signature facts are established by
+                       bit-exact deterministic device recomputation.
+  with_sha_stark=True  additionally proves the data-commitment tuple tree's
+                       hashes in the batched SHA-256 STARK (prover.sha_claims).
+
+The JAX package's other tiers (with_sha_stark="full", with_ed_stark=True)
+are not ported yet (ROADMAP queue 1): prove_skip refuses them and the
+verifier fails closed on a proof that carries one.
+
+Bundle binding: the SHA STARK is proven FIRST and a SHA-256 digest of its
+claim list enters the main SkipAir STARK's public inputs (publics 30..37;
+38..45 for the Ed25519 STARK), so the transcripts form one tamper-evident
+object. The proof bytes equal the JAX package's for the same witness,
+config and tier, and either package's verifier accepts the other's proofs.
+
+verify_skip_proof() re-checks the STARK(s), the threshold inequalities over
+the public integers, the digest binding, and — given the claimed witness
+data, passed or embedded in the proof — the tuple-tree claim walk and the
+signer/power binding.
 """
 
 from __future__ import annotations
@@ -33,15 +49,12 @@ from blobstreamx_tpu_torch.circuits.skip import SkipCheckResult, SkipPublicOutpu
 from blobstreamx_tpu_torch.circuits.witness import SkipWitness
 from blobstreamx_tpu_torch.device import resolve
 from blobstreamx_tpu_torch.golden import goldilocks as gold
-from blobstreamx_tpu_torch.prover import stark
+from blobstreamx_tpu_torch.prover import sha_claims, stark
 from blobstreamx_tpu_torch.prover.air import Air
 from blobstreamx_tpu_torch.prover.config import StarkConfig
 from blobstreamx_tpu_torch.utils.timing import TimingTree
 
 P = gold.P
-
-# the aux-claim digest words of publics[30:46] are zero at the default tier
-NO_AUX_DIGEST = bytes(32)
 
 
 class SkipAir(Air):
@@ -94,11 +107,46 @@ def _pack_bytes32(b: bytes) -> list[int]:
     return [int.from_bytes(b[i : i + 4], "big") for i in range(0, 32, 4)]
 
 
+def sha_claim_digest(sha_proof) -> bytes:
+    """Canonical SHA-256 digest of a batched-SHA STARK's claim list (the aux
+    (message-words, digest) stream plus, for the full-coverage proof, its
+    claimed link fields). Bound into the main STARK's publics so the aux
+    proof cannot be swapped across skip proofs. bytes(32) when absent."""
+    if sha_proof is None:
+        return bytes(32)
+    h = hashlib.sha256()
+    h.update(b"full" if hasattr(sha_proof, "link_fields") else b"tree")
+    h.update(int(sha_proof.n_rows).to_bytes(8, "big"))
+    for w, o in sha_proof.aux:
+        for v in list(w) + list(o):
+            h.update(int(v).to_bytes(4, "big"))
+    for total, psh in getattr(sha_proof, "link_fields", []):
+        h.update(int(total).to_bytes(8, "big"))
+        h.update(bytes(psh))
+    return h.digest()
+
+
+def ed_claim_digest(ed_proof) -> bytes:
+    """Canonical digest of the Ed25519 scalar-mul STARK's claim list
+    ((scalar, point, result) per segment). bytes(32) when absent."""
+    if ed_proof is None:
+        return bytes(32)
+    h = hashlib.sha256()
+    h.update(int(ed_proof.n_rows).to_bytes(8, "big"))
+    for s, pt, out in ed_proof.aux:
+        h.update(int(s).to_bytes(32, "little"))
+        h.update(int(pt[0]).to_bytes(32, "little"))
+        h.update(int(pt[1]).to_bytes(32, "little"))
+        for v in out:
+            h.update(int(v).to_bytes(32, "little"))
+    return h.digest()
+
+
 def skip_publics(
     res_outputs: SkipPublicOutputs,
     res: SkipCheckResult,
-    sha_digest: bytes = NO_AUX_DIGEST,
-    ed_digest: bytes = NO_AUX_DIGEST,
+    sha_digest: bytes = bytes(32),
+    ed_digest: bytes = bytes(32),
 ) -> list[int]:
     return (
         [
@@ -143,6 +191,17 @@ class SkipProof:
     n_rows: int
     stark: stark.StarkProof
     timing: str  # rendered TimingTree
+    # the batched-SHA STARK proving every hash of the data-commitment tuple
+    # tree (prover.sha_claims), when proven with with_sha_stark=True
+    sha_stark: object | None = None
+    # the Ed25519 scalar-mul STARK of the JAX package (not ported yet: the
+    # port's prover never sets it and its verifier fails closed on it)
+    ed_stark: object | None = None
+    # the embedded claim bundle (SkipClaimData): UNTRUSTED hints that make
+    # the serialized proof self-contained — the verifier re-derives the claim
+    # digests bound in publics[30:46] from the aux proofs, and walks the
+    # claims against the STARK-proven digests before they count
+    claims: object | None = None
 
 
 def signature_items(witness: SkipWitness) -> list[tuple[bytes, bytes, bytes]]:
@@ -194,10 +253,24 @@ def prove_skip(
     witness: SkipWitness,
     config: StarkConfig | None = None,
     device=None,
+    with_sha_stark: bool | str = False,
+    with_ed_stark: bool = False,
 ) -> SkipProof:
-    """The default-tier skip pipeline on `device` (default: the card; raises
-    when CUDA is missing unless device="cpu" is passed). Raises ValueError
-    (fail-stop) if the witness does not satisfy the skip relation."""
+    """The skip pipeline on `device` (default: the card; raises when CUDA is
+    missing unless device="cpu" is passed). Raises ValueError (fail-stop) if
+    the witness does not satisfy the skip relation.
+
+    with_sha_stark=True also proves the data-commitment tuple tree in the
+    batched SHA-256 STARK (through stark_stream.prove_auto, which streams it
+    when the standard prover would not fit the device) and embeds the claim
+    bundle in the proof. with_sha_stark="full" and with_ed_stark=True are
+    the JAX package's tiers not ported yet: they raise NotImplementedError."""
+    if with_sha_stark not in (False, True):
+        raise NotImplementedError(
+            f"with_sha_stark={with_sha_stark!r} (the full-coverage SHA STARK) is not ported yet: ROADMAP queue 1"
+        )
+    if with_ed_stark:
+        raise NotImplementedError("with_ed_stark (the Ed25519 STARK) is not ported yet: ROADMAP queue 1")
     device = resolve(device)
     config = config or StarkConfig()
     timing = TimingTree("prove_skip")
@@ -207,7 +280,20 @@ def prove_skip(
         raise ValueError(f"skip relation unsatisfied: {res.reasons}")
     with timing.scope("trace"):
         trace = build_skip_trace(res)
-    publics = skip_publics(res.outputs, res)
+
+    # the aux STARK is proven BEFORE the main STARK so its claim digest
+    # enters the main transcript
+    sha_proof = None
+    if with_sha_stark:
+        heights = [int(h) for h in witness.range_heights]
+        with timing.scope("sha_stark", items=len(heights), unit="leaves", sync=device):
+            sha_proof, sha_root = sha_claims.prove_data_commitment_stark(
+                heights, witness.range_data_hashes, config, device=device, timing=timing
+            )
+        if sha_root != res.outputs.data_commitment:
+            raise ValueError("sha-stark root mismatch vs device data commitment")
+
+    publics = skip_publics(res.outputs, res, sha_claim_digest(sha_proof))
     with timing.scope("stark", items=trace.shape[0], unit="rows", sync=device):
         proof = stark.prove(SkipAir(), trace, publics, config, device=device)
     timing.finish()
@@ -217,14 +303,19 @@ def prove_skip(
         n_rows=trace.shape[0],
         stark=proof,
         timing=timing.render(),
+        sha_stark=sha_proof,
+        # the untrusted hint bundle rides along whenever an aux STARK is
+        # present, so the serialized proof verifies self-contained
+        claims=claim_data_from_witness(witness) if sha_proof is not None else None,
     )
 
 
 @dataclass
 class SkipClaimData:
-    """Claimed witness data for the signer/power binding check (untrusted
-    hints — checked against the public inputs before they influence the
-    verdict)."""
+    """Claimed witness data the verifier needs to walk the aux STARK claims
+    and check the signer/power binding (all untrusted hints — every field is
+    checked against the STARK-proven claims and the public inputs before it
+    influences the verdict)."""
 
     range_heights: list[int] | None = None
     range_data_hashes: list[bytes] | None = None
@@ -308,16 +399,28 @@ def verify_skip_proof_detailed(
     config: StarkConfig | None = None,
     claims: SkipClaimData | None = None,
 ) -> tuple[bool, dict]:
-    """Host verifier of a default-tier skip proof. Returns (ok, detail).
+    """Host verifier. Returns (ok, detail) where detail records what was
+    checked vs skipped for each sub-proof.
 
-    Always checked: the threshold inequalities, public consistency with the
-    outputs, the zero aux-claim digest words (publics 30..45: this tier
-    carries no aux STARKs) and the STARK transcript. With claims supplied:
-    the signer/power binding between the claimed lists and the public sums."""
+    Always checked: the main STARK transcript, threshold inequalities,
+    public consistency, and the aux-claim DIGEST binding (publics 30..45) —
+    a stripped or swapped aux proof fails here even without claim data.
+
+    With claims (supplied, or else embedded in the proof): the SHA STARK's
+    tuple-tree claim walk, and the signer/power binding between the claimed
+    lists and the public sums. A SHA STARK without claim data, and the JAX
+    package's full-coverage SHA and Ed25519 STARKs (not ported yet), fail
+    closed."""
     config = config or StarkConfig()
+    claims_src = "supplied"
+    if claims is None:
+        claims = getattr(proof, "claims", None)
+        claims_src = "embedded" if claims is not None else "none"
     detail = {
         "stark": "unchecked",
-        "claims": "supplied" if claims is not None else "none",
+        "sha_stark": "absent" if proof.sha_stark is None else "present",
+        "ed_stark": "absent" if proof.ed_stark is None else "present",
+        "claims": claims_src,
         "binding": "skipped: claim data not supplied",
     }
     pub = proof.publics
@@ -340,13 +443,42 @@ def verify_skip_proof_detailed(
     if out.target_height <= out.trusted_height:
         detail["stark"] = "failed: non-increasing height"
         return False, detail
-    if pub[30:46] != _pack_bytes32(NO_AUX_DIGEST) * 2:
-        detail["stark"] = "failed: aux-claim digests bound, but this tier has no aux STARKs"
+    # digest binding: the aux claim lists this proof was made with
+    if pub[30:38] != _pack_bytes32(sha_claim_digest(proof.sha_stark)):
+        detail["sha_stark"] = "failed: claim digest not bound in transcript"
+        return False, detail
+    if pub[38:46] != _pack_bytes32(ed_claim_digest(proof.ed_stark)):
+        detail["ed_stark"] = "failed: claim digest not bound in transcript"
         return False, detail
     if not stark.verify(SkipAir(), proof.stark, pub, config, proof.n_rows):
         detail["stark"] = "failed: STARK rejected"
         return False, detail
     detail["stark"] = "ok"
+
+    if proof.sha_stark is not None:
+        if hasattr(proof.sha_stark, "link_fields"):
+            detail["sha_stark"] = "failed: the full-coverage SHA STARK is not ported yet (fail closed)"
+            return False, detail
+        if claims is None or claims.range_heights is None:
+            # FAIL CLOSED: a proof carrying an aux STARK promises its hash
+            # claims were proven; without the claim data they cannot be
+            # checked, and "present but unverified" must not read as ok
+            detail["sha_stark"] = "failed: claim data unavailable (fail closed)"
+            return False, detail
+        if not sha_claims.verify_data_commitment_stark(
+            proof.sha_stark,
+            [int(h) for h in claims.range_heights],
+            claims.range_data_hashes,
+            out.data_commitment,
+            config,
+        ):
+            detail["sha_stark"] = "failed: tuple-tree claim walk rejected"
+            return False, detail
+        detail["sha_stark"] = "ok: tuple tree"
+
+    if proof.ed_stark is not None:
+        detail["ed_stark"] = "failed: the Ed25519 STARK is not ported yet (fail closed)"
+        return False, detail
 
     if (
         claims is not None

@@ -1,9 +1,12 @@
 """Canonical proof (de)serialization — JSON-based, integers only, so the
 encoding is lossless and platform-independent (bit-exactness is the
-invariant; there are no floats anywhere in a proof). Covers StarkProof and
-the default-tier skip proof, in the JAX package's schema: the bytes of a
+invariant; there are no floats anywhere in a proof). Covers StarkProof,
+the skip proof at the default and SHA-256 tiers (its batched-SHA STARK and
+the embedded claim bundle), in the JAX package's schema: the bytes of a
 port proof equal the JAX package's for the same proof, so either package's
-verifier reads the other's blobs.
+verifier reads the other's blobs. Blobs of the JAX package's tiers that are
+not ported yet (the full-coverage SHA STARK, the Ed25519 STARK) are refused
+at decode time.
 """
 
 from __future__ import annotations
@@ -146,8 +149,82 @@ def stark_proof_from_bytes(b: bytes) -> stark.StarkProof:
     return _decode(stark_proof_from_dict, b)
 
 
+def sha_claims_to_dict(p) -> dict:
+    """Serialize a sha_claims.ShaStarkProof."""
+    return {
+        "aux": [[list(map(int, w)), list(map(int, o))] for w, o in p.aux],
+        "n_rows": int(p.n_rows),
+        "stark": stark_proof_to_dict(p.stark),
+    }
+
+
+def sha_claims_from_dict(d: dict):
+    from blobstreamx_tpu_torch.prover.sha_claims import ShaStarkProof
+
+    _require("link_fields" not in d,
+             "the full-coverage SHA STARK is not ported yet (ROADMAP queue 1)")
+    return ShaStarkProof(
+        stark=stark_proof_from_dict(d["stark"]),
+        aux=[(tuple(w), tuple(o)) for w, o in d["aux"]],
+        n_rows=int(d["n_rows"]),
+    )
+
+
+def claim_data_to_dict(c) -> dict:
+    """pipeline.SkipClaimData -> plain dict — the untrusted hint bundle a
+    verifier needs to walk the aux STARK claims."""
+    d = {"schema": SCHEMA, "kind": "skip_claims"}
+    if c.range_heights is not None:
+        d["range_heights"] = [int(h) for h in c.range_heights]
+    if c.range_data_hashes is not None:
+        d["range_data_hashes"] = [bytes(h).hex() for h in c.range_data_hashes]
+    if c.sign_items is not None:
+        d["sign_items"] = [
+            [pk.hex(), msg.hex(), sig.hex()] for pk, msg, sig in c.sign_items
+        ]
+    if c.trusted_vals is not None:
+        d["trusted_vals"] = [[pk.hex(), int(p)] for pk, p in c.trusted_vals]
+    if c.target_vals is not None:
+        d["target_vals"] = [[pk.hex(), int(p)] for pk, p in c.target_vals]
+    return d
+
+
+def claim_data_to_bytes(c) -> bytes:
+    return json.dumps(claim_data_to_dict(c), separators=(",", ":")).encode()
+
+
+def claim_data_from_dict(d: dict):
+    from blobstreamx_tpu_torch.prover.pipeline import SkipClaimData
+
+    _require(d.get("schema") == SCHEMA and d.get("kind") == "skip_claims",
+             "not a skip_claims blob")
+    return SkipClaimData(
+        range_heights=d.get("range_heights"),
+        range_data_hashes=None
+        if "range_data_hashes" not in d
+        else [bytes.fromhex(h) for h in d["range_data_hashes"]],
+        sign_items=None
+        if "sign_items" not in d
+        else [
+            (bytes.fromhex(pk), bytes.fromhex(msg), bytes.fromhex(sig))
+            for pk, msg, sig in d["sign_items"]
+        ],
+        trusted_vals=None
+        if "trusted_vals" not in d
+        else [(bytes.fromhex(pk), int(p)) for pk, p in d["trusted_vals"]],
+        target_vals=None
+        if "target_vals" not in d
+        else [(bytes.fromhex(pk), int(p)) for pk, p in d["target_vals"]],
+    )
+
+
+def claim_data_from_bytes(b: bytes):
+    return _decode(claim_data_from_dict, b)
+
+
 def skip_proof_to_bytes(p) -> bytes:
-    """Serialize a default-tier pipeline.SkipProof (no aux STARKs)."""
+    """Serialize a pipeline.SkipProof (its SHA STARK and embedded claim
+    bundle included when present: one self-contained file)."""
     d = {
         "schema": SCHEMA,
         "kind": "skip",
@@ -162,6 +239,12 @@ def skip_proof_to_bytes(p) -> bytes:
         "n_rows": int(p.n_rows),
         "stark": stark_proof_to_dict(p.stark),
     }
+    if p.sha_stark is not None:
+        d["sha_stark"] = sha_claims_to_dict(p.sha_stark)
+    if p.ed_stark is not None:
+        raise ValueError("the Ed25519 STARK is not ported yet (ROADMAP queue 1)")
+    if p.claims is not None:
+        d["claims"] = claim_data_to_dict(p.claims)
     return json.dumps(d, separators=(",", ":")).encode()
 
 
@@ -181,14 +264,13 @@ def _skip_proof_from_dict(d: dict):
         target_root=bytes.fromhex(d["outputs"]["target_root"]),
         data_commitment=bytes.fromhex(d["outputs"]["data_commitment"]),
     )
-    _require(
-        not any(k in d for k in ("sha_stark", "ed_stark", "claims")),
-        "aux STARKs and claim bundles are not part of the default tier",
-    )
+    _require("ed_stark" not in d, "the Ed25519 STARK is not ported yet (ROADMAP queue 1)")
     return pipeline.SkipProof(
         outputs=out,
         publics=list(d["publics"]),
         n_rows=int(d["n_rows"]),
         stark=stark_proof_from_dict(d["stark"]),
         timing="",
+        sha_stark=sha_claims_from_dict(d["sha_stark"]) if "sha_stark" in d else None,
+        claims=claim_data_from_dict(d["claims"]) if "claims" in d else None,
     )

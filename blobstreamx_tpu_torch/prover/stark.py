@@ -185,6 +185,21 @@ def _ext_powers(z, m: int):
     return tuple((c[0][:m], c[1][:m]) for c in p)
 
 
+class _PowerTable:
+    """[z^0, z^1, ...] of an ext scalar z (shape (1,)) on its device, built
+    once and extended (to the next power of two) when a caller asks for more
+    powers than it holds, so repeated alpha combinations share one table."""
+
+    def __init__(self, z):
+        self.z = z
+        self.vec = None
+
+    def upto(self, m: int):
+        if self.vec is None or self.vec[0][0].shape[0] < m:
+            self.vec = _ext_powers(self.z, 1 << max(0, (m - 1).bit_length()))
+        return self.vec
+
+
 def _ext_gather(e, idx):
     return tuple((c[0][idx], c[1][idx]) for c in e)
 
@@ -299,12 +314,12 @@ def _fixed_lde_cached(air_key, air: Air, n: int, rate_bits: int, shift: int, dev
     return out
 
 
-def _combine_alpha_device(constraints, alpha, alg: DeviceAlgebra, offset: int = 0):
+def _combine_alpha_device(constraints, alpha_pows: _PowerTable, alg: DeviceAlgebra, offset: int = 0):
     """Width-aware alpha combination: constraint j's columns get consecutive
     alpha powers starting at `offset` (a constraint group passes its global
     offset); returns {kind: ext accumulator}."""
     total = offset + sum(alg.width(v) for v, _ in constraints)
-    pow_vec = _ext_powers(alpha, max(total, 1))
+    pow_vec = alpha_pows.upto(max(total, 1))
     acc = {}
     for value, kind in constraints:
         w = alg.width(value)
@@ -348,56 +363,78 @@ def _quotient_commit(q_cols: Gl, n: int, config: StarkConfig, shift: int, ch: in
     return q_chunk_coeffs, q_lde, layers
 
 
-def _quotient_cols(air: Air, trace_lde, s2_lde, publics, alpha, fixed_lde, chals,
-                   n: int, config: StarkConfig, shift: int, device) -> Gl:
-    """Constraint evaluation over the extended domain, alpha combination and
-    division by the divisor tables -> the (n_ext, 2) quotient columns."""
-    blowup = config.blowup()
-    n_ext = n * blowup
+def _divisor_tables(n: int, config: StarkConfig, shift: int, device):
+    """name -> the (n_ext,) divisor table on the device: "zh_inv" 1/Z_H,
+    "domain" x, "first_inv" 1/(x - 1), "last_inv" 1/(x - g^(n-1))."""
     log_n = n.bit_length() - 1
     log_n_ext = log_n + config.rate_bits
     g_last = pow(gold.root_of_unity(log_n), n - 1, P)
-    dev = str(device)
+    args = {
+        "zh_inv": ("zh_inv", (log_n, config.rate_bits, shift)),
+        "domain": ("domain", (log_n_ext, shift)),
+        "first_inv": ("point_inv", (log_n_ext, shift, 1)),
+        "last_inv": ("point_inv", (log_n_ext, shift, g_last)),
+    }
+    return lambda name: _device_gl(*args[name], str(device))
 
-    def frame(lde, k):
-        return _LazyCols(lde, k), _LazyCols(lde, k, roll=blowup)
 
-    local, nxt = frame(trace_lde, air.n_cols)
-    stage2, stage2_next = frame(s2_lde, air.n_stage2)
-    fixed, fixed_next = frame(fixed_lde, air.n_fixed)
+def _quotient_points(air: Air, frames: dict, publics, alpha_pows: _PowerTable, chals,
+                     m: int, tables, n: int, device) -> Gl:
+    """Constraint evaluation at m points of the extended domain of an n-row
+    trace (all of it, or a row range of one class of it), alpha combination
+    over the constraint groups and division by the divisor tables -> the
+    (m, 2) quotient columns. frames: local, nxt, stage2, stage2_next, fixed,
+    fixed_next; tables(name): the divisor table at the same m points (see
+    _divisor_tables)."""
     fr = dict(
-        fixed=fixed, fixed_next=fixed_next, challenges=chals,
-        stage2=stage2, stage2_next=stage2_next,
+        fixed=frames["fixed"], fixed_next=frames["fixed_next"], challenges=chals,
+        stage2=frames["stage2"], stage2_next=frames["stage2_next"],
     )
-    alg = DeviceAlgebra((n_ext,), device)
+    alg = DeviceAlgebra((m,), device)
     acc: dict = {}
     offset = 0
     for g in range(getattr(air, "n_constraint_groups", 1)):
-        cons = air.eval_constraint_group(g, local, nxt, publics, alg, **fr)
+        cons = air.eval_constraint_group(g, frames["local"], frames["nxt"], publics, alg, **fr)
         for v, kind in cons:
             assert kind in KINDS
-        for kind, v in _combine_alpha_device(cons, alpha, alg, offset).items():
+        for kind, v in _combine_alpha_device(cons, alpha_pows, alg, offset).items():
             acc[kind] = gf64.ext_add(acc[kind], v) if kind in acc else v
         offset += sum(alg.width(v) for v, _ in cons)
+        del cons
 
-    zh_inv = _device_gl("zh_inv", (log_n, config.rate_bits, shift), dev)
     inv_by_kind = {}
     if "all" in acc:
-        inv_by_kind["all"] = zh_inv
+        inv_by_kind["all"] = tables("zh_inv")
     if "transition" in acc:
-        x_tab = _device_gl("domain", (log_n_ext, shift), dev)
-        x_minus_last = gl_sub(x_tab, gf64.full((), g_last, device))
-        inv_by_kind["transition"] = gl_mul(zh_inv, x_minus_last)
+        g_last = pow(gold.root_of_unity(n.bit_length() - 1), n - 1, P)
+        x_minus_last = gl_sub(tables("domain"), gf64.full((), g_last, device))
+        inv_by_kind["transition"] = gl_mul(tables("zh_inv"), x_minus_last)
     if "first" in acc:
-        inv_by_kind["first"] = _device_gl("point_inv", (log_n_ext, shift, 1), dev)
+        inv_by_kind["first"] = tables("first_inv")
     if "last" in acc:
-        inv_by_kind["last"] = _device_gl("point_inv", (log_n_ext, shift, g_last), dev)
+        inv_by_kind["last"] = tables("last_inv")
     q = None
     for kind, v in acc.items():
         inv_d = inv_by_kind[kind]
         term = (gl_mul(v[0], inv_d), gl_mul(v[1], inv_d))
         q = gf64.ext_add(q, term) if q is not None else term
     return torch.stack([q[0][0], q[1][0]], dim=1), torch.stack([q[0][1], q[1][1]], dim=1)
+
+
+def _quotient_cols(air: Air, trace_lde, s2_lde, publics, alpha, fixed_lde, chals,
+                   n: int, config: StarkConfig, shift: int, device) -> Gl:
+    """Constraint evaluation over the whole extended domain (the next row is
+    blowup points on) -> the (n_ext, 2) quotient columns."""
+    blowup = config.blowup()
+    frames = dict(
+        local=_LazyCols(trace_lde, air.n_cols), nxt=_LazyCols(trace_lde, air.n_cols, roll=blowup),
+        stage2=_LazyCols(s2_lde, air.n_stage2), stage2_next=_LazyCols(s2_lde, air.n_stage2, roll=blowup),
+        fixed=_LazyCols(fixed_lde, air.n_fixed), fixed_next=_LazyCols(fixed_lde, air.n_fixed, roll=blowup),
+    )
+    return _quotient_points(
+        air, frames, publics, _PowerTable(alpha), chals, n * blowup,
+        _divisor_tables(n, config, shift, device), n, device,
+    )
 
 
 def _openings(trace_coeffs, s2_coeffs, q_chunk_coeffs, zeta, g_zeta, n: int):
@@ -416,6 +453,15 @@ def _cat_ext(*vs):
     return tuple(
         (torch.cat([v[c][0] for v in vs]), torch.cat([v[c][1] for v in vs])) for c in range(2)
     )
+
+
+def _deep_divide(num_a, num_b, zeta, g_zeta, log_n_ext: int, shift: int):
+    """DEEP codeword from its numerators: num_a/(x - zeta) + num_b/(x - g*zeta)
+    over the extended domain (ext)."""
+    x_ext = gf64.ext_from_base(_device_gl("domain", (log_n_ext, shift), str(zeta[0][0].device)))
+    inv_xz = gf64.ext_inv(gf64.ext_sub(x_ext, zeta))
+    inv_xgz = gf64.ext_inv(gf64.ext_sub(x_ext, g_zeta))
+    return gf64.ext_add(gf64.ext_mul(num_a, inv_xz), gf64.ext_mul(num_b, inv_xgz))
 
 
 def _deep(trace_lde, s2_lde, q_lde, zeta, g_zeta, gamma, tz, tgz, s2z, s2gz, qz,
@@ -441,13 +487,9 @@ def _deep(trace_lde, s2_lde, q_lde, zeta, g_zeta, gamma, tz, tgz, s2z, s2gz, qz,
     b0 = _sum_cols(gl_mul(wit_lde, (gp_b[0][0][None, :], gp_b[0][1][None, :])))
     b1 = _sum_cols(gl_mul(wit_lde, (gp_b[1][0][None, :], gp_b[1][1][None, :])))
     cb = tuple(_sum_rows(c) for c in gf64.ext_mul(gp_b, open_b))
-
-    x_ext = gf64.ext_from_base(_device_gl("domain", (log_n_ext, shift), str(zeta[0][0].device)))
-    inv_xz = gf64.ext_inv(gf64.ext_sub(x_ext, zeta))
-    inv_xgz = gf64.ext_inv(gf64.ext_sub(x_ext, g_zeta))
-    num_a = gf64.ext_sub((a0, a1), ca)
-    num_b = gf64.ext_sub((b0, b1), cb)
-    return gf64.ext_add(gf64.ext_mul(num_a, inv_xz), gf64.ext_mul(num_b, inv_xgz))
+    return _deep_divide(
+        gf64.ext_sub((a0, a1), ca), gf64.ext_sub((b0, b1), cb), zeta, g_zeta, log_n_ext, shift
+    )
 
 
 def _observe_cap(challenger: Challenger, cap_ints) -> None:

@@ -20,7 +20,11 @@ result):
      polynomial's (8, 1), and at the edges of their designs: Poseidon at a
      ragged batch ((12, 16383), (12, 1)), the NTT at a ragged last column
      tile (2048, 2050), one-column tiles (2^14, 3), n = 1 (1, 4) and both
-     passes of an odd-log four-step ((1024, 2048), (2048, 1024));
+     passes of an odd-log four-step ((1024, 2048), (2048, 1024)), the NTT's
+     multi-launch path (columns longer than 2^14) at the SHA tier's shapes
+     (the trace chunk's LDE (2^21, 32) and INTT (2^18, 32), the ragged last
+     chunk (2^18, 20), the quotient's coset INTT (2^21, 2) and LDE
+     (2^21, 16)) and at (2^16, 8);
      the Edwards add at config 5's lane counts 64, 1024, 4096 and 32768,
      each with edge lanes (an identity operand, a doubling, p + (-p),
      points of order 2 and 4, coordinates in [p, 2^256)), and pow22523 at
@@ -55,11 +59,28 @@ result):
      iterations each way, butterflies/s) and of its plain version, of the
      column path and of one
      fold of the codeword. One JSON line {"config4": {...}}.
+  8. config 5 at the SHA-256 tier: first the memory fit behind
+     stark_stream.AUTO_STREAM_BYTES (stark.prove's peak device memory on
+     Sha256Air traces of 2^12, 2^13 and 2^14 rows against
+     estimate_standard_bytes, a least-squares line, and the peak it predicts
+     at the cutover, which must stay under 85 % of the card's memory); then
+     phase 5's witness through a cold and a warm
+     prove_skip(with_sha_stark=True) on cuda (the SHA STARK over the
+     1023-leaf tuple tree: 4096 blocks, a 2^18 x 1300 trace, 2^21 rows
+     extended, on the streaming path), the TimingTree, each kernel's
+     launches in the warm prove (ntt, ntt_multi, poseidon, edwards_add and
+     pow_chain must each be > 0), the peak device memory (under the card's)
+     and what was resident before, the prover path prove_auto took (must be
+     streaming); warm bytes == cold bytes, the port's verifier accepts with
+     "ok: tuple tree", and rejects one word of a claimed digest changed, the
+     SHA STARK stripped, and one embedded range data hash changed. One JSON
+     line {"config5_sha": {...}}; with --profile, one more warm SHA-tier
+     prove under torch.profiler.
 
 Each path has its own list of kernels that must launch. Before the last
-line come {"config5": ...}, {"config4": ...} and {"kernels": [...]}, where
-each kernel's "launches" is from the warm run of its own path ("path") and
-"launches_by_path" has both; the last line is
+line come {"config5": ...}, {"config4": ...}, {"config5_sha": ...} and
+{"kernels": [...]}, where each kernel's "launches" is from the warm run of
+its own path ("path") and "launches_by_path" has all three; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Bounds: the least time the card could take, the larger of the bytes moved
@@ -92,7 +113,10 @@ CONFIG4 = dict(seed=0, log_n=22, fold_beta=0x123456789ABCDEF, iters=16)
 PATH_KERNELS = {
     "config5": ("ntt", "poseidon", "edwards_add", "pow_chain"),
     "config4": ("ntt", "twiddle_transpose", "poseidon"),
+    "config5_sha": ("ntt", "ntt_multi", "poseidon", "edwards_add", "pow_chain"),
 }
+CUTOVER_FIT_ROWS = (1 << 12, 1 << 13, 1 << 14)  # Sha256Air traces through stark.prove
+CUTOVER_MEMORY_SHARE = 0.85  # of the card's memory, the most the fit may predict at the cutover
 
 
 def log(*a):
@@ -210,15 +234,11 @@ def curve_lanes(rng, n):
 
 
 def check_ntt(rng, dev):
-    from blobstreamx_tpu_torch.fields import gf64
-    from blobstreamx_tpu_torch.ops import ntt
-
-    rows = []
-    cases = [
+    """The tile kernel (columns of at most 2^14)."""
+    return _ntt_cases(rng, dev, [
         ((32, 8), True, "trace INTT"),
         ((256, 8), False, "trace LDE"),
         ((256, 2), True, "quotient coset INTT"),
-        ((1 << 16, 8), False, "multi-launch path"),
         ((2048, 2048), False, "four-step pass at 2^22"),
         ((2048, 2048), True, "four-step inverse pass at 2^22"),
         ((8, 1), True, "FRI final-poly coset INTT"),
@@ -227,13 +247,34 @@ def check_ntt(rng, dev):
         ((2048, 2050), False, "ragged last column tile"),
         ((1 << 14, 3), True, "one-column tiles at the largest shared-memory n"),
         ((1, 4), False, "n = 1"),
-    ]
+    ])
+
+
+def check_ntt_multi(rng, dev):
+    """The multi-launch path (columns longer than 2^14) at the SHA tier's
+    shapes (column chunks of 32 at 2^18 rows, rate_bits 3)."""
+    return _ntt_cases(rng, dev, [
+        ((1 << 21, 32), False, "SHA trace chunk LDE"),
+        ((1 << 18, 32), True, "SHA trace chunk INTT"),
+        ((1 << 18, 20), True, "SHA last (ragged) trace chunk INTT"),
+        ((1 << 21, 2), True, "SHA quotient coset INTT"),
+        ((1 << 21, 16), False, "SHA quotient LDE"),
+        ((1 << 16, 8), False, "multi-launch path at 2^16"),
+    ])
+
+
+def _ntt_cases(rng, dev, cases):
+    from blobstreamx_tpu_torch.fields import gf64
+    from blobstreamx_tpu_torch.ops import ntt
+
+    rows = []
     for (n, c), inverse, what in cases:
         x = gf64.from_u64(gl_values(rng, (n, c)), dev)
         mism, err = gl_mismatch(ntt._ntt_cols_cuda(x, inverse), ntt.ntt_cols_plain(x, inverse))
         reps = 20 if n * c <= 1 << 16 else 5
         ms = time_ms(lambda: ntt._ntt_cols_cuda(x, inverse), reps)
-        plain_ms = time_ms(lambda: ntt.ntt_cols_plain(x, inverse), 3)
+        plain_ms = time_ms(lambda: ntt.ntt_cols_plain(x, inverse), 3) if n * c <= 1 << 23 else time_ms(
+            lambda: ntt.ntt_cols_plain(x, inverse), 1, warm=1)
         log_n = n.bit_length() - 1
         muls = (n // 2) * log_n * c + (n * c if inverse else 0)
         b, by = bound(32 * n * c + 8 * (n // 2), muls * GL_MUL_OPS)
@@ -242,6 +283,7 @@ def check_ntt(rng, dev):
         assert mism == 0, f"ntt kernel disagrees with the plain version at ({n}, {c})"
         rows.append(dict(shape=f"({n}, {c}) {'inverse' if inverse else 'forward'}", max_abs_err=err,
                          ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by))
+        del x
     return rows
 
 
@@ -382,6 +424,9 @@ KERNELS = [
     dict(name="ntt", counter="ntt", source="blobstreamx_tpu_torch/csrc/ntt.cu",
          replaces="blobstreamx_tpu/ops/ntt.py:332", also_replaces="blobstreamx_tpu/ops/ntt.py:248",
          path="config4", main_shape="(2048, 2048) forward", check=check_ntt),
+    dict(name="ntt_multi", counter="ntt_multi", source="blobstreamx_tpu_torch/csrc/ntt.cu",
+         replaces="blobstreamx_tpu/ops/ntt.py:332", also_replaces="blobstreamx_tpu/ops/ntt.py:248",
+         path="config5_sha", main_shape="(2097152, 32) forward", check=check_ntt_multi),
     dict(name="twiddle_transpose", counter="twiddle_transpose", source="blobstreamx_tpu_torch/csrc/ntt.cu",
          replaces="blobstreamx_tpu/ops/ntt.py:374", also_replaces="blobstreamx_tpu/ops/ntt.py:289",
          path="config4", main_shape="(2048, 2048) forward", check=check_twiddle_transpose),
@@ -646,6 +691,133 @@ def config4(smi: str, profile: bool = False):
     return launches
 
 
+def cutover_fit(rng) -> dict:
+    """stark.prove's peak device memory on Sha256Air traces of
+    CUTOVER_FIT_ROWS rows (tuple-tree-shaped: 65-byte messages, two blocks
+    each) against estimate_standard_bytes, a least-squares line through
+    them, and the peak it predicts at stark_stream.AUTO_STREAM_BYTES."""
+    import numpy as np
+    import torch
+
+    from blobstreamx_tpu_torch.prover import sha_air, stark, stark_stream
+    from blobstreamx_tpu_torch.prover.config import StarkConfig
+
+    cfg = StarkConfig()
+    points = []
+    for rows in CUTOVER_FIT_ROWS:
+        chain, blocks = sha_air.plan_blocks([rng.bytes(65) for _ in range(rows // 128)])
+        trace, aux = sha_air.build_sha_trace(chain, blocks)
+        air = sha_air.Sha256Air(chain)
+        est = stark_stream.estimate_standard_bytes(rows, air.n_cols + air.n_stage2, cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        stark.prove(air, trace, [], cfg, aux=aux, device="cuda")
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        log(f"  stark.prove Sha256Air {rows} rows: estimate {est} bytes, peak {peak} bytes above "
+            f"{base} resident, {time.perf_counter() - t0:.3f} s")
+        points.append((est, peak))
+        del trace, aux
+    x = np.array([p[0] for p in points], np.float64)
+    y = np.array([p[1] for p in points], np.float64)
+    slope, intercept = np.polyfit(x, y, 1)
+    at_cutover = slope * stark_stream.AUTO_STREAM_BYTES + intercept
+    total = torch.cuda.get_device_properties(0).total_memory
+    fit = dict(rows=list(CUTOVER_FIT_ROWS), points=points, slope=float(slope), intercept=float(intercept),
+               cutover_bytes=stark_stream.AUTO_STREAM_BYTES, predicted_peak_at_cutover=float(at_cutover),
+               card_memory_bytes=total)
+    log(f"  fit: peak = {slope:.4f} x estimate + {intercept:.0f} bytes; at the cutover "
+        f"({stark_stream.AUTO_STREAM_BYTES} bytes) {at_cutover:.0f} bytes of the card's {total}")
+    assert at_cutover < CUTOVER_MEMORY_SHARE * total, "the standard path would not fit below the cutover"
+    return fit
+
+
+def sha_tamper(proof, how: str):
+    """One of phase 8's three tampers of a SHA-tier proof."""
+    if how == "strip_sha_stark":
+        return dataclasses.replace(proof, sha_stark=None)
+    if how == "digest_word":
+        (w0, out0), *rest = proof.sha_stark.aux
+        aux = [(w0, ((out0[0] + 1) & 0xFFFFFFFF,) + tuple(out0[1:]))] + rest
+        return dataclasses.replace(proof, sha_stark=dataclasses.replace(proof.sha_stark, aux=aux))
+    hashes = list(proof.claims.range_data_hashes)
+    hashes[0] = bytes([hashes[0][0] ^ 1]) + hashes[0][1:]
+    return dataclasses.replace(proof, claims=dataclasses.replace(proof.claims, range_data_hashes=hashes))
+
+
+def config5_sha(w, smi: str, profile: bool):
+    """Config 5 at the SHA-256 tier on the card (phase 8)."""
+    import numpy as np
+    import torch
+
+    from blobstreamx_tpu_torch import kernels
+    from blobstreamx_tpu_torch.prover import pipeline, sha_air, sha_claims, stark_stream
+    from blobstreamx_tpu_torch.prover.config import StarkConfig
+    from blobstreamx_tpu_torch.prover.serialize import skip_proof_to_bytes
+
+    fit = cutover_fit(np.random.default_rng(5))
+
+    def prove():
+        return pipeline.prove_skip(w, device="cuda", with_sha_stark=True)
+
+    t0 = time.perf_counter()
+    cold = prove()
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    log(f"  cold prove_skip(with_sha_stark=True): {cold_s:.3f} s")
+
+    kernels.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    warm = prove()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    sha = warm.sha_stark
+    air = sha_air.Sha256Air(sha_claims._expected_chain(len(w.range_heights)))
+    path = "streaming" if stark_stream.uses_streaming(air, sha.n_rows, StarkConfig()) else "standard"
+    log(f"  warm prove_skip(with_sha_stark=True): {warm_s:.3f} s")
+    log("  warm TimingTree:\n" + "\n".join("    " + line for line in warm.timing.splitlines()))
+    log(f"  SHA STARK: {len(sha.aux)} blocks, {sha.n_rows} x {air.n_cols} trace, prover path {path}")
+    log(f"  kernel launches in the warm prove: {json.dumps(launches)}")
+    log(f"  peak device memory in the warm prove: {peak} bytes ({resident} resident before it; the card has {total})")
+    assert path == "streaming", "prove_auto did not take the streaming path at config 5's SHA tier"
+    missing = [k for k in PATH_KERNELS["config5_sha"] if launches[k] == 0]
+    assert not missing, f"kernels of the SHA-tier path were not launched: {missing} ({launches})"
+    assert peak < total, "peak device memory above the card's"
+    assert skip_proof_to_bytes(warm) == skip_proof_to_bytes(cold), "warm and cold SHA-tier proofs differ"
+    del cold
+
+    t0 = time.perf_counter()
+    ok, detail = pipeline.verify_skip_proof_detailed(warm)
+    verify_s = time.perf_counter() - t0
+    log(f"  verify_skip_proof_detailed: {ok} {json.dumps(detail)} ({verify_s:.3f} s)")
+    assert ok and detail["sha_stark"] == "ok: tuple tree", "the port's verifier rejected the SHA-tier proof"
+    tampers = {}
+    for how in ("digest_word", "strip_sha_stark", "range_data_hash"):
+        t0 = time.perf_counter()
+        ok_t, detail_t = pipeline.verify_skip_proof_detailed(sha_tamper(warm, how))
+        tampers[how] = detail_t.get("sha_stark")
+        log(f"  tamper {how}: accepted {ok_t}, {detail_t.get('sha_stark')} ({time.perf_counter() - t0:.3f} s)")
+        assert not ok_t, f"a SHA-tier proof with tamper {how} was accepted"
+    rec = dict(
+        cold_s=cold_s, warm_s=warm_s, verify_s=verify_s, launches=launches, peak_device_bytes=peak,
+        resident_before_bytes=resident, card_memory_bytes=total, prover_path=path, sha_blocks=len(sha.aux),
+        sha_rows=sha.n_rows, sha_cols=air.n_cols, leaves=len(w.range_heights), tampers_rejected=tampers,
+        cutover_fit=fit, card=smi,
+    )
+    log(json.dumps({"config5_sha": rec}))
+    if profile:
+        proof = profile_warm("SHA-tier warm prove", prove)
+        log("  TimingTree:\n" + "\n".join("    " + line for line in proof.timing.splitlines()))
+    return launches
+
+
 def profile_warm(what: str, run):
     """One more warm run of a path under torch.profiler (only with
     --profile): device time by kernel name, host time by operator, the
@@ -732,6 +904,9 @@ def main() -> int:
 
     log("[7] config 4 on the card")
     by_path = {"config5": launches5, "config4": config4(smi, profile="--profile" in sys.argv[1:])}
+
+    log("[8] config 5 at the SHA-256 tier on the card")
+    by_path["config5_sha"] = config5_sha(w, smi, profile="--profile" in sys.argv[1:])
 
     out = []
     for k in KERNELS:

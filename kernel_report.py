@@ -23,10 +23,12 @@ loops' bodies once more per extra trip: 4, 22, 4 trips), for the NTT the
 instructions per butterfly of the whole kernel at (2048, 2048) forward
 (see ntt_count), and for ed25519.cu the instructions per field multiply,
 per squaring, per Edwards add and per pow22523 chain (see ed_count). Then
-it times every library's kernel at the shapes of chip_smoke.py's phase 3,
-in the order this checkout, baselines, baselines reversed, this checkout,
-each time the mean of its two turns, both by CUDA events over back-to-back
-calls and as device time under torch.profiler (see device_ms); it holds
+it times every library's kernel at the shapes of chip_smoke.py's phase 3
+(the NTT's multi-launch path, columns longer than 2^14, at the SHA-256
+tier's shapes among them), in the order this checkout, baselines,
+baselines reversed, this checkout, each time the mean of its two turns,
+both by CUDA events over back-to-back calls and as device time under
+torch.profiler (see device_ms); it holds
 every output equal to this checkout's kernel (which chip_smoke.py holds
 equal to the plain PyTorch version), and times one empty launch of this
 checkout's ed25519 library (the launch floor). The last line is one JSON
@@ -54,6 +56,9 @@ NTT_SHAPES = (
     (32, 8, True), (256, 8, False), (256, 2, True), (8, 1, True), (1, 4, False),
     (2048, 2048, False), (2048, 2048, True), (1024, 2048, False), (2048, 1024, False),
     (2048, 2050, False), (1 << 14, 3, True),
+    # the multi-launch path (columns longer than 2^14) at the SHA tier's shapes
+    (1 << 21, 32, False), (1 << 18, 32, True), (1 << 18, 20, True), (1 << 21, 2, True), (1 << 21, 16, False),
+    (1 << 16, 8, False),
 )
 ED_LANES = (64, 1024, 4096, 32768)  # the Edwards add's lane counts on config 5's path
 CHAIN_CASES = ((None, 64), (None, 4096), (1, 64), (5, 64), (50, 64))  # (sqn k, or pow22523; lanes)
@@ -382,9 +387,11 @@ def main() -> int:
         log_n = n.bit_length() - 1
         tw = ntt._power_table_device(log_n, inverse, "cuda")
         out = (torch.empty_like(x[0]), torch.empty_like(x[1]))
+        scratch = torch.empty((n, c), dtype=torch.int64, device="cuda") if n > lib.bsx_ntt_smem_max_n() else None
         kernels.check(lib.bsx_ntt_cols(x[0].data_ptr(), x[1].data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
                                        tw.data_ptr(), log_n, c, int(inverse),
-                                       gold.inv(n % gold.P) if inverse else 1, None, stream), "ntt")
+                                       gold.inv(n % gold.P) if inverse else 1,
+                                       None if scratch is None else scratch.data_ptr(), stream), "ntt")
         return out
 
     def add_call(lib, coords):

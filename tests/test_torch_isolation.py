@@ -1,5 +1,5 @@
-"""The port stands alone: no module of blobstreamx_tpu_torch (nor
-chip_smoke.py) imports JAX or the JAX package, and the public entry points
+"""The port stands alone: no module of blobstreamx_tpu_torch (nor its
+scripts chip_smoke.py, kernel_report.py and prover_ab.py) imports JAX or the JAX package, and the public entry points
 refuse to fall back to the CPU when CUDA is missing."""
 
 import ast
@@ -11,7 +11,8 @@ import torch
 from blobstreamx_tpu_torch.circuits import fixtures as fx, witness as wit
 
 ROOT = Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((ROOT / "blobstreamx_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SCRIPTS = ("chip_smoke.py", "kernel_report.py", "prover_ab.py")
+PORT_FILES = sorted((ROOT / "blobstreamx_tpu_torch").rglob("*.py")) + [ROOT / f for f in SCRIPTS]
 FORBIDDEN = ("jax", "jaxlib", "blobstreamx_tpu")
 
 

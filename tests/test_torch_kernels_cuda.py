@@ -37,6 +37,8 @@ def fe(rng, n):
 @pytest.mark.parametrize("n,c,inverse", [
     (32, 8, True), (256, 8, False), (256, 2, True), (1 << 15, 4, False), (8, 1, True),
     (2048, 2050, False), (1 << 14, 3, True), (1, 4, False), (1024, 2048, False), (2048, 1024, True),
+    # the multi-launch path at the SHA tier's shapes
+    (1 << 21, 32, False), (1 << 18, 20, True), (1 << 21, 2, True),
 ])
 def test_ntt_kernel(n, c, inverse):
     from blobstreamx_tpu_torch.ops import ntt
@@ -130,3 +132,20 @@ def test_ntt_four_step_on_the_card(log_n, inverse):
     assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
     col = ntt.ntt_cols((x[0][:, None], x[1][:, None]), inverse)
     assert torch.equal(k[0], col[0][:, 0]) and torch.equal(k[1], col[1][:, 0])
+
+
+def test_streaming_prover_on_the_card_equals_the_cpu():
+    """prove_streaming on the card (multi-launch NTT, Poseidon, the class
+    evaluation in row ranges) gives stark.prove's bytes on the CPU, on a
+    one-message SHA-256 AIR (128 rows, three column chunks)."""
+    from blobstreamx_tpu_torch.prover import serialize, sha_air, stark, stark_stream
+    from blobstreamx_tpu_torch.prover.config import StarkConfig
+
+    _card()
+    chain, blocks = sha_air.plan_blocks([b"\x00" + bytes(range(64))])
+    trace, aux = sha_air.build_sha_trace(chain, blocks)
+    air = sha_air.Sha256Air(chain)
+    cfg = StarkConfig(rate_bits=2, num_query_rounds=4, proof_of_work_bits=2)
+    on_card = stark_stream.prove_streaming(air, trace, [], cfg, aux=aux, col_chunk=512, device="cuda")
+    on_cpu = stark.prove(air, trace, [], cfg, aux=aux, device="cpu")
+    assert serialize.stark_proof_to_bytes(on_card) == serialize.stark_proof_to_bytes(on_cpu)

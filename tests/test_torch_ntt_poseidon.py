@@ -158,6 +158,22 @@ def test_poseidon_kernel_mds_arithmetic_matches_jax():
         assert [v % P for v in got] == jgold_pos._mds([v % P for v in st])
 
 
+def test_plain_mds_matches_golden_at_limb_edges():
+    """The plain MDS (one float64 limb-matrix product) is exact: every limb
+    at 0xFFFF (2^64 - 1, the largest column sums), P - 1, 2^32 - 1, 0 and
+    random words give the golden model's MDS mod P."""
+    rng = np.random.default_rng(16)
+    states = [[(1 << 64) - 1] * 12, [P - 1] * 12, [(1 << 32) - 1] * 12, [0] * 12,
+              [(1 << 64) - 1 if i % 2 else 0 for i in range(12)]]
+    states += [[int(v) for v in rng.integers(0, 1 << 64, 12, dtype=np.uint64)] for _ in range(59)]
+    words = np.array(states, dtype=np.uint64).T  # (12, 64)
+    lo = torch.from_numpy((words & np.uint64(0xFFFFFFFF)).astype(np.int64))
+    hi = torch.from_numpy((words >> np.uint64(32)).astype(np.int64))
+    got = tgf.to_u64(tpos._mds((lo, hi)))
+    for j, st in enumerate(states):
+        assert [int(v) for v in got[:, j]] == gpos._mds([v % P for v in st]), j
+
+
 @pytest.mark.parametrize("L", [1, 4, 8, 9, 20])
 def test_hash_columns_matches_golden(L):
     cols = gl_matrix(11 + L, (L, 5))
