@@ -8,7 +8,9 @@
 // The carries are taken from the hardware's carry flag (PTX add.cc / addc,
 // sub.cc / subc on the 32-bit halves) instead of 64-bit compares, each of
 // which costs two ISETP and two SEL in SASS: gl_add is 9 PTX instructions,
-// gl_sub 5 and gl_reduce128_nc 11 (plus one 32x32 multiply).
+// gl_sub 5 and gl_reduce128_nc 11 (plus one 32x32 multiply). gl_mul (the
+// NTT kernels' multiply) is one PTX block: the 128-bit product on one carry
+// chain, the same reduction and the canonical step on the carry flag.
 #pragma once
 
 #include <stdint.h>
@@ -101,8 +103,54 @@ __device__ __forceinline__ uint64_t gl_mul_nc(uint64_t a, uint64_t b) {
   return gl_reduce128_nc(a * b, __umul64hi(a, b));
 }
 
+// a * b mod p in [0, p) for any u64 a and b. The product r3:r2:r1:r0 comes
+// as four 32x32 products, each one's low and high halves adjacent on one
+// carry chain, so that ptxas issues one IMAD.WIDE.U32 with carry in and out
+// per product instead of the compiler's 64-bit product and __umul64hi; the
+// non-.cc madc never carries out (a word of the product, or hi(a0*b1) + 1).
+// Then gl_reduce128_nc's reduction, and r - p = r + EPS - 2^64 where
+// r + EPS carries.
 __device__ __forceinline__ uint64_t gl_mul(uint64_t a, uint64_t b) {
-  return gl_canonical(gl_mul_nc(a, b));
+  uint64_t r;
+  asm("{\n\t"
+      ".reg .u32 a0, a1, b0, b1, r0, r1, r2, r3, u0, u1, c;\n\t"
+      ".reg .u64 u;\n\t"
+      ".reg .pred q;\n\t"
+      "mov.b64 {a0, a1}, %1;\n\t"
+      "mov.b64 {b0, b1}, %2;\n\t"
+      "mul.lo.u32 r0, a0, b0;\n\t"
+      "mul.hi.u32 r1, a0, b0;\n\t"
+      "mad.lo.cc.u32 r1, a0, b1, r1;\n\t"
+      "madc.hi.u32 r2, a0, b1, 0;\n\t"
+      "mad.lo.cc.u32 r1, a1, b0, r1;\n\t"
+      "madc.hi.cc.u32 r2, a1, b0, r2;\n\t"
+      "addc.u32 r3, 0, 0;\n\t"
+      "mad.lo.cc.u32 r2, a1, b1, r2;\n\t"
+      "madc.hi.u32 r3, a1, b1, r3;\n\t"
+      "mul.wide.u32 u, r2, 0xffffffff;\n\t"
+      "mov.b64 {u0, u1}, u;\n\t"
+      "sub.cc.u32 r0, r0, r3;\n\t"
+      "subc.cc.u32 r1, r1, 0;\n\t"
+      "subc.u32 c, 0, 0;\n\t"
+      "sub.cc.u32 r0, r0, c;\n\t"
+      "subc.u32 r1, r1, 0;\n\t"
+      "add.cc.u32 r0, r0, u0;\n\t"
+      "addc.cc.u32 r1, r1, u1;\n\t"
+      "addc.u32 c, 0, 0;\n\t"
+      "neg.s32 c, c;\n\t"
+      "add.cc.u32 r0, r0, c;\n\t"
+      "addc.u32 r1, r1, 0;\n\t"
+      "add.cc.u32 u0, r0, 0xffffffff;\n\t"
+      "addc.cc.u32 u1, r1, 0;\n\t"
+      "addc.u32 c, 0, 0;\n\t"
+      "setp.ne.u32 q, c, 0;\n\t"
+      "selp.b32 r0, u0, r0, q;\n\t"
+      "selp.b32 r1, u1, r1, q;\n\t"
+      "mov.b64 %0, {r0, r1};\n\t"
+      "}"
+      : "=l"(r)
+      : "l"(a), "l"(b));
+  return r;
 }
 
 // (lo, hi) int64 words of the PyTorch layout <-> one u64 value

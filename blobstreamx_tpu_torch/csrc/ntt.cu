@@ -38,12 +38,35 @@
 // tiles of 8 columns and 256 threads a block a few per cent longer, and the
 // power table staged in shared memory once per block was within 2 % at
 // (2048, 2048) but 18 % slower at (16384, 3). Built for sm_90a the whole
-// kernel at (2048, 2048) forward is at most 62.7 SASS instructions a
-// butterfly at 64 registers a thread, against 112.9 for the
-// column-per-block kernel it replaced (kernel_report.py counts them).
-// Columns longer than NTT_SMEM_MAX_N take the same transform through device
-// memory, one launch per stage with one thread per (butterfly, column)
-// pair, so neighbouring threads touch neighbouring columns.
+// kernel at (2048, 2048) forward is at most 59.7 SASS instructions a
+// butterfly at 64 registers a thread (62.7 with the compiler's 64-bit
+// product in gl_mul), against 112.9 for the column-per-block kernel it
+// replaced (kernel_report.py counts them).
+//
+// Columns longer than NTT_SMEM_MAX_N (the SHA tier's 2^18 and 2^21 column
+// chunks) do not fit shared memory whole, so the log n stages run in passes
+// of L stages, one launch a pass, with the same machinery: a pass starting at
+// stage s0 gives each block a tile of 2^L positions x CT columns that share
+// their bits below s0 and above s0 + L and vary over the L bits between, so
+// every butterfly of those stages pairs two positions of one tile; the tile
+// runs its L stages as above (radix-8 groups in registers, shared memory
+// between them), with the whole column's stage and position in the twiddle
+// exponent. The first pass reads the (lo, hi) rows bit-reversed straight
+// from device memory, the last writes (lo, hi) with the n^-1 of the
+// inverse; the passes between read and write one u64 intermediate (the
+// caller's scratch, 8 B an element, in place). Two passes (ceil and floor of
+// log n / 2 stages) while a pass's tile fits NTT_LONG_SMEM (2^11 positions x
+// 4 columns, 72 KB, so two blocks share an SM), three above 2^22. Each
+// element is read and written twice: 16 + 8 B in the first pass, 8 + 16 B
+// in the last, 48 B against the 32 B of the function itself; at (2^21, 32)
+// that is 0.96 ms at 3.35 TB/s against a 0.64 ms bound. Timed on an H100
+// (PERF.md, kernel_report.py and its --probe), the passes are held back by
+// their device memory accesses more than by the field arithmetic: with the
+// arithmetic, and then the twiddle loads, taken out they keep most of their
+// time. Wider column tiles (8 columns: three passes at 2^21, or two at one
+// block an SM), 256 threads a block at three blocks an SM, and tiles staged
+// through shared memory by cp.async into two buffers of persistent blocks
+// all took as long or longer.
 //
 // Layout: lo/hi are int64 tensors holding u32 words, row-major (n, C).
 // Twiddles: tw[k] = w^k for k < n/2 (w^-k for the inverse), as u64.
@@ -55,6 +78,11 @@
 #define NTT_SMEM_MAX_N (1 << 14)
 #define NTT_THREADS 512
 #define NTT_TILE_COLS 4
+#define NTT_LONG_COLS 4
+#define NTT_LONG_THREADS 512
+#define NTT_LONG_BLOCKS_PER_SM 2
+#define NTT_LONG_SMEM (112 * 1024)
+#define NTT_MAX_PASSES 4
 
 __device__ __forceinline__ int bitrev(int i, int log_n) {
   return log_n == 0 ? 0 : (int)(__brev((unsigned)i) >> (32 - log_n));
@@ -66,19 +94,33 @@ __host__ __device__ __forceinline__ int ntt_pad(int i) { return i + (i >> 3); }
 // the tile's columns, [i + i/8][CT]
 extern __shared__ uint64_t ntt_smem[];
 
+// where a pass reads and writes: the (lo, hi) rows of device memory (read
+// bit-reversed), the tile in shared memory, or the u64 intermediate
+enum { NTT_SMEM = 0, NTT_LOHI = 1, NTT_U64 = 2 };
+
 struct NttTile {
   const int64_t* lo_in;
   const int64_t* hi_in;
   int64_t* lo_out;
   int64_t* hi_out;
+  uint64_t* buf;       // the u64 intermediate of the long-column passes
   const uint64_t* tw;  // the power table
   int log_n, c, col0, log_ct, cw, inverse;
+  int log_tile;        // stages of this pass: the tile holds 2^log_tile positions
+  int s0, low, high;   // a long-column pass: first stage, the tile's fixed bits
   uint64_t n_inv;
 };
 
+// Device-memory row of tile position i: the tile kernel's tile is the whole
+// column; a long-column pass's tile holds rows high | i << s0 | low.
+template <bool SPLIT>
+__device__ __forceinline__ int ntt_row(const NttTile& t, int i) {
+  return SPLIT ? t.high | (i << t.s0) | t.low : i;
+}
+
 // DIT stages st .. st+R-1 on the 2^R elements v[j] = x[base + j * 2^st] of
-// one group, k = base mod 2^st. FIRST (st = 0, so k = 0) skips the
-// multiplies by w^0 = 1.
+// one group, k = base mod 2^st (st, base and k in the whole column's
+// positions). FIRST (st = 0, so k = 0) skips the multiplies by w^0 = 1.
 template <int R, bool FIRST>
 __device__ __forceinline__ void ntt_radix(uint64_t v[8], const NttTile& t, int st, int k) {
   const int log_n = t.log_n;
@@ -103,13 +145,15 @@ __device__ __forceinline__ void ntt_radix(uint64_t v[8], const NttTile& t, int s
   }
 }
 
-// One pass: stages st .. st+R-1 for every group of the tile. The first pass
-// reads device memory (rows bit-reversed), the last writes it; the others
-// read and write shared memory in place (groups are disjoint).
-template <int R, bool FROM_GLOBAL, bool TO_GLOBAL>
+// One radix pass: stages st .. st+R-1 of the tile (st counted within the
+// tile) for every group of the tile, read from SRC and written to DST. The
+// groups are disjoint, so shared memory is read and written in place; so is
+// the u64 intermediate, whose tile is read in the first radix pass and
+// written in the last, after a barrier.
+template <int R, int SRC, int DST, bool SPLIT>
 __device__ __forceinline__ void ntt_pass(const NttTile& t, int st) {
   const int ct = 1 << t.log_ct;
-  const int groups = ct << (t.log_n - R);
+  const int groups = ct << (t.log_tile - R);
   for (int g = threadIdx.x; g < groups; g += blockDim.x) {
     const int col = g & (ct - 1);
     if (col >= t.cw) continue;
@@ -120,22 +164,29 @@ __device__ __forceinline__ void ntt_pass(const NttTile& t, int st) {
 #pragma unroll
     for (int j = 0; j < (1 << R); j++) {
       const int i = base + (j << st);
-      if (FROM_GLOBAL) {
-        const size_t src = (size_t)bitrev(i, t.log_n) * t.c + t.col0 + col;
+      if (SRC == NTT_LOHI) {
+        const size_t src = (size_t)bitrev(ntt_row<SPLIT>(t, i), t.log_n) * t.c + t.col0 + col;
         v[j] = gl_join(t.lo_in[src], t.hi_in[src]);
+      } else if (SRC == NTT_U64) {
+        v[j] = t.buf[(size_t)ntt_row<SPLIT>(t, i) * t.c + t.col0 + col];
       } else {
         v[j] = ntt_smem[ntt_pad(i) * ct + col];
       }
     }
-    ntt_radix<R, FROM_GLOBAL>(v, t, st, k);
+    if (SPLIT)
+      ntt_radix<R, SRC == NTT_LOHI>(v, t, t.s0 + st, (k << t.s0) | t.low);
+    else
+      ntt_radix<R, SRC == NTT_LOHI>(v, t, st, k);
 #pragma unroll
     for (int j = 0; j < (1 << R); j++) {
       const int i = base + (j << st);
-      if (TO_GLOBAL) {
+      if (DST == NTT_LOHI) {
         const uint64_t x = t.inverse ? gl_mul(v[j], t.n_inv) : v[j];
-        const size_t dst = (size_t)i * t.c + t.col0 + col;
+        const size_t dst = (size_t)ntt_row<SPLIT>(t, i) * t.c + t.col0 + col;
         t.lo_out[dst] = (int64_t)(x & GL_EPS);
         t.hi_out[dst] = (int64_t)(x >> 32);
+      } else if (DST == NTT_U64) {
+        t.buf[(size_t)ntt_row<SPLIT>(t, i) * t.c + t.col0 + col] = v[j];
       } else {
         ntt_smem[ntt_pad(i) * ct + col] = v[j];
       }
@@ -147,87 +198,121 @@ __host__ __device__ __forceinline__ int ntt_passes(int log_n) {
   return log_n <= 3 ? 1 : (log_n + 2) / 3;
 }
 
+// All log_tile stages of the tile: the first radix pass from SRC, the
+// middle ones through shared memory, the last to DST. The passes are
+// radix 8 but for the last one or two, which are radix 4 where log_tile is
+// not a multiple of 3 (10 stages as 3 + 3 + 2 + 2, not 3 + 3 + 3 + 1: a
+// radix-2 pass pays a group's loads, stores and index arithmetic for one
+// butterfly).
+template <int SRC, int DST, bool SPLIT>
+__device__ __forceinline__ void ntt_stages(const NttTile& t) {
+  const int passes = ntt_passes(t.log_tile);
+  if (!SPLIT && passes == 1) {
+    switch (t.log_tile) {
+      case 0: ntt_pass<0, SRC, DST, SPLIT>(t, 0); break;
+      case 1: ntt_pass<1, SRC, DST, SPLIT>(t, 0); break;
+      case 2: ntt_pass<2, SRC, DST, SPLIT>(t, 0); break;
+      default: ntt_pass<3, SRC, DST, SPLIT>(t, 0); break;
+    }
+    return;
+  }
+  const int radix8 = passes - (3 * passes - t.log_tile);  // the others are radix 4
+  int st = radix8 > 0 ? 3 : 2;
+  if (radix8 > 0)
+    ntt_pass<3, SRC, NTT_SMEM, SPLIT>(t, 0);
+  else
+    ntt_pass<2, SRC, NTT_SMEM, SPLIT>(t, 0);
+  __syncthreads();
+  for (int p = 1; p < passes - 1; p++) {
+    if (p < radix8) {
+      ntt_pass<3, NTT_SMEM, NTT_SMEM, SPLIT>(t, st);
+      st += 3;
+    } else {
+      ntt_pass<2, NTT_SMEM, NTT_SMEM, SPLIT>(t, st);
+      st += 2;
+    }
+    __syncthreads();
+  }
+  if (t.log_tile - st == 3)
+    ntt_pass<3, NTT_SMEM, DST, SPLIT>(t, st);
+  else
+    ntt_pass<2, NTT_SMEM, DST, SPLIT>(t, st);
+}
+
 __global__ void __launch_bounds__(NTT_THREADS) ntt_tile_kernel(
     const int64_t* __restrict__ lo_in, const int64_t* __restrict__ hi_in,
     int64_t* __restrict__ lo_out, int64_t* __restrict__ hi_out,
     const uint64_t* __restrict__ tw, int log_n, int c, int log_ct, int inverse,
     uint64_t n_inv) {
   const int col0 = blockIdx.x << log_ct;
-  const int passes = ntt_passes(log_n);
-  const NttTile t{lo_in, hi_in, lo_out, hi_out, tw, log_n, c, col0, log_ct,
-                  min(1 << log_ct, c - col0), inverse, n_inv};
-  if (passes == 1) {
-    switch (log_n) {
-      case 0: ntt_pass<0, true, true>(t, 0); break;
-      case 1: ntt_pass<1, true, true>(t, 0); break;
-      case 2: ntt_pass<2, true, true>(t, 0); break;
-      default: ntt_pass<3, true, true>(t, 0); break;
-    }
-    return;
-  }
-  ntt_pass<3, true, false>(t, 0);
-  __syncthreads();
-  int st = 3;
-  for (int p = 1; p < passes - 1; p++, st += 3) {
-    ntt_pass<3, false, false>(t, st);
-    __syncthreads();
-  }
-  switch (log_n - st) {
-    case 1: ntt_pass<1, false, true>(t, st); break;
-    case 2: ntt_pass<2, false, true>(t, st); break;
-    default: ntt_pass<3, false, true>(t, st); break;
-  }
+  const NttTile t{lo_in, hi_in, lo_out, hi_out, nullptr, tw, log_n, c, col0, log_ct,
+                  min(1 << log_ct, c - col0), inverse, log_n, 0, 0, 0, n_inv};
+  ntt_stages<NTT_LOHI, NTT_LOHI, false>(t);
 }
 
 static size_t ntt_tile_smem(int log_n, int log_ct) {
   return ntt_passes(log_n) > 1 ? ((size_t)ntt_pad(1 << log_n) << log_ct) * sizeof(uint64_t) : 0;
 }
 
-__global__ void ntt_bitrev_kernel(const int64_t* __restrict__ lo_in,
-                                  const int64_t* __restrict__ hi_in,
-                                  uint64_t* __restrict__ buf, int log_n,
-                                  int c) {
-  size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  size_t total = ((size_t)1 << log_n) * c;
-  if (idx >= total) return;
-  int row = (int)(idx / c);
-  int col = (int)(idx % c);
-  size_t src = (size_t)bitrev(row, log_n) * c + col;
-  buf[idx] = gl_join(lo_in[src], hi_in[src]);
+// One pass of a long column: stages s0 .. s0+log_tile-1. A block's column
+// tile is blockIdx.x mod (column tiles), its position tile b the quotient,
+// bit-reversed in the first pass: there tile b reads the input rows
+// r * 2^(log n - log_tile) + bitrev(b), so that blocks running together read
+// neighbouring rows (it halves the first pass at (2^21, 2), whose rows are
+// 16 B).
+template <int SRC, int DST>
+__device__ __forceinline__ void ntt_long_pass(const int64_t* lo_in, const int64_t* hi_in,
+                                              int64_t* lo_out, int64_t* hi_out, uint64_t* buf,
+                                              const uint64_t* tw, int log_n, int c, int log_ct,
+                                              int s0, int log_tile, int inverse, uint64_t n_inv) {
+  const int tiles_c = (c + (1 << log_ct) - 1) >> log_ct;
+  const int col0 = (int)(blockIdx.x % tiles_c) << log_ct;
+  const int b = SRC == NTT_LOHI ? bitrev((int)(blockIdx.x / tiles_c), log_n - log_tile)
+                                : (int)(blockIdx.x / tiles_c);
+  const NttTile t{lo_in, hi_in, lo_out, hi_out, buf, tw, log_n, c, col0, log_ct,
+                  min(1 << log_ct, c - col0), inverse, log_tile, s0, b & ((1 << s0) - 1),
+                  (b >> s0) << (s0 + log_tile), n_inv};
+  ntt_stages<SRC, DST, true>(t);
 }
 
-__global__ void ntt_stage_kernel(uint64_t* __restrict__ buf,
-                                 const uint64_t* __restrict__ tw, int log_n,
-                                 int c, int st) {
-  size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  size_t total = ((size_t)1 << (log_n - 1)) * c;
-  if (idx >= total) return;
-  int b = (int)(idx / c);
-  int col = (int)(idx % c);
-  const int half = 1 << st;
-  const int k = b & (half - 1);
-  const size_t i0 = (size_t)(((b >> st) << (st + 1)) + k) * c + col;
-  const size_t i1 = i0 + (size_t)half * c;
-  const uint64_t t = gl_mul(buf[i1], __ldg(&tw[(size_t)k << (log_n - 1 - st)]));
-  const uint64_t x0 = buf[i0];
-  buf[i0] = gl_add(x0, t);
-  buf[i1] = gl_sub(x0, t);
+#define NTT_LONG_ARGS                                                                 \
+  const int64_t *__restrict__ lo_in, const int64_t *__restrict__ hi_in,               \
+      int64_t *__restrict__ lo_out, int64_t *__restrict__ hi_out, uint64_t *buf,      \
+      const uint64_t *__restrict__ tw, int log_n, int c, int log_ct, int s0, int log_tile, \
+      int inverse, uint64_t n_inv
+#define NTT_LONG_CALL lo_in, hi_in, lo_out, hi_out, buf, tw, log_n, c, log_ct, s0, log_tile, inverse, n_inv
+
+// the first pass ((lo, hi) in, bit-reversed; u64 out), a middle one (u64 in
+// place) and the last (u64 in; (lo, hi) out, times n^-1 for the inverse);
+// two blocks of 512 threads an SM, so at most 64 registers a thread
+#define NTT_LONG_BOUNDS __launch_bounds__(NTT_LONG_THREADS, NTT_LONG_BLOCKS_PER_SM)
+__global__ void NTT_LONG_BOUNDS ntt_long_first_kernel(NTT_LONG_ARGS) {
+  ntt_long_pass<NTT_LOHI, NTT_U64>(NTT_LONG_CALL);
+}
+__global__ void NTT_LONG_BOUNDS ntt_long_mid_kernel(NTT_LONG_ARGS) {
+  ntt_long_pass<NTT_U64, NTT_U64>(NTT_LONG_CALL);
+}
+__global__ void NTT_LONG_BOUNDS ntt_long_last_kernel(NTT_LONG_ARGS) {
+  ntt_long_pass<NTT_U64, NTT_LOHI>(NTT_LONG_CALL);
 }
 
-__global__ void ntt_store_kernel(const uint64_t* __restrict__ buf,
-                                 int64_t* __restrict__ lo_out,
-                                 int64_t* __restrict__ hi_out, size_t total,
-                                 int inverse, uint64_t n_inv) {
-  size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  uint64_t v = inverse ? gl_mul(buf[idx], n_inv) : buf[idx];
-  lo_out[idx] = (int64_t)(v & GL_EPS);
-  hi_out[idx] = (int64_t)(v >> 32);
+// The long-column plan for (2^log_n, c): the column tile (2^log_ct columns,
+// at most NTT_LONG_COLS and no more than c), and the stages of each pass:
+// as few passes as keep every pass's tile within NTT_LONG_SMEM, the stages
+// split as evenly as they go, the larger shares first. Returns the passes.
+static int ntt_long_plan(int log_n, int c, int* log_ct, int stages[NTT_MAX_PASSES]) {
+  *log_ct = 0;
+  while ((2 << *log_ct) <= NTT_LONG_COLS && (2 << *log_ct) <= c) ++*log_ct;
+  int max_tile = 3;
+  while (ntt_tile_smem(max_tile + 1, *log_ct) <= NTT_LONG_SMEM) max_tile++;
+  const int passes = (log_n + max_tile - 1) / max_tile;
+  if (passes > NTT_MAX_PASSES) return 0;
+  for (int p = 0; p < passes; p++) stages[p] = log_n / passes + (p < log_n % passes ? 1 : 0);
+  return passes;
 }
 
-static inline unsigned blocks_for(size_t total, unsigned threads) {
-  return (unsigned)((total + threads - 1) / threads);
-}
+// kernels launched by bsx_ntt_cols so far (bsx_ntt_launch_count)
+static int ntt_launches = 0;
 
 // Returns the CUDA error code of the launches (0 on success). `scratch` must
 // hold n*C u64 when n > bsx_ntt_smem_max_n(), and may be null otherwise.
@@ -238,12 +323,12 @@ extern "C" int bsx_ntt_cols(const int64_t* lo_in, const int64_t* hi_in,
   cudaStream_t st = (cudaStream_t)stream;
   const int n = 1 << log_n;
   if (c <= 0) return 0;
+  int dev, max_smem;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return (int)e;
   if (n <= NTT_SMEM_MAX_N) {
-    int dev, max_smem;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (e != cudaSuccess) return (int)e;
     int log_ct = 0;
     while ((2 << log_ct) <= NTT_TILE_COLS && (2 << log_ct) <= c &&
            ntt_tile_smem(log_n, log_ct + 1) <= (size_t)max_smem)
@@ -260,26 +345,50 @@ extern "C" int bsx_ntt_cols(const int64_t* lo_in, const int64_t* hi_in,
     const unsigned tiles = (unsigned)((c + (1 << log_ct) - 1) >> log_ct);
     ntt_tile_kernel<<<tiles, threads, smem, st>>>(lo_in, hi_in, lo_out, hi_out, tw,
                                                   log_n, c, log_ct, inverse, n_inv);
-    return (int)cudaGetLastError();
+    e = cudaGetLastError();
+    if (e == cudaSuccess) ntt_launches++;
+    return (int)e;
   }
-  const unsigned threads = 256;
-  const size_t total = (size_t)n * c;
-  ntt_bitrev_kernel<<<blocks_for(total, threads), threads, 0, st>>>(
-      lo_in, hi_in, scratch, log_n, c);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  for (int s = 0; s < log_n; s++) {
-    ntt_stage_kernel<<<blocks_for(total / 2, threads), threads, 0, st>>>(
-        scratch, tw, log_n, c, s);
+  int log_ct, stages[NTT_MAX_PASSES];
+  const int passes = ntt_long_plan(log_n, c, &log_ct, stages);
+  if (passes < 2 || scratch == nullptr) return (int)cudaErrorInvalidValue;
+  const size_t tiles_c = (size_t)((c + (1 << log_ct) - 1) >> log_ct);
+  for (int p = 0, s0 = 0; p < passes; s0 += stages[p], p++) {
+    const int log_tile = stages[p];
+    auto kernel = p == 0 ? ntt_long_first_kernel
+                  : p == passes - 1 ? ntt_long_last_kernel : ntt_long_mid_kernel;
+    const size_t smem = ntt_tile_smem(log_tile, log_ct);
+    if (smem > (size_t)max_smem) return (int)cudaErrorInvalidValue;
+    if (smem > 48 * 1024) {
+      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (e != cudaSuccess) return (int)e;
+    }
+    const int groups = (1 << log_ct) << (log_tile - 3);
+    const int threads = groups >= NTT_LONG_THREADS ? NTT_LONG_THREADS : (groups + 31) / 32 * 32;
+    const size_t blocks = tiles_c << (log_n - log_tile);
+    if (blocks > 0x7fffffffu) return (int)cudaErrorInvalidValue;
+    kernel<<<(unsigned)blocks, threads, smem, st>>>(lo_in, hi_in, lo_out, hi_out, scratch, tw,
+                                                    log_n, c, log_ct, s0, log_tile, inverse,
+                                                    n_inv);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
+    ntt_launches++;
   }
-  ntt_store_kernel<<<blocks_for(total, threads), threads, 0, st>>>(
-      scratch, lo_out, hi_out, total, inverse, n_inv);
-  return (int)cudaGetLastError();
+  return 0;
 }
 
 extern "C" int bsx_ntt_smem_max_n(void) { return NTT_SMEM_MAX_N; }
+
+extern "C" int bsx_ntt_launch_count(void) { return ntt_launches; }
+
+// The long-column plan of bsx_ntt_cols at (2^log_n, c): out[0] = log2 of the
+// column tile, out[1 ..] = the stages of each pass. Returns the passes (0 if
+// the column takes the tile kernel, or no plan fits NTT_MAX_PASSES).
+extern "C" int bsx_ntt_long_plan(int log_n, int c, int* out) {
+  if ((1 << log_n) <= NTT_SMEM_MAX_N || c <= 0) return 0;
+  const int passes = ntt_long_plan(log_n, c, &out[0], &out[1]);
+  return passes;
+}
 
 // ---------------------------------------------------------------------------
 // Four-step twiddle multiply fused with the transpose.

@@ -36,6 +36,8 @@ SIGNATURES = {
     "ntt": {
         "bsx_ntt_cols": [_P, _P, _P, _P, _P, _I, _I, _I, _U64, _P, _P],
         "bsx_ntt_smem_max_n": [],
+        "bsx_ntt_long_plan": [_I, _I, _P],
+        "bsx_ntt_launch_count": [],
         "bsx_twiddle_transpose": [_P, _P, _P, _P, _P, _I, _I, _P],
     },
     "poseidon": {
@@ -50,8 +52,8 @@ SIGNATURES = {
     },
 }
 
-# "ntt" counts the tile kernel (n <= 2^14), "ntt_multi" the multi-launch path
-# for longer columns (bit reversal, one launch a stage, store)
+# "ntt" counts the tile kernel (n <= 2^14), "ntt_multi" the long-column path
+# (one launch a pass of shared-memory stages, two passes up to 2^22), once a call
 launches = {"ntt": 0, "ntt_multi": 0, "twiddle_transpose": 0, "poseidon": 0, "edwards_add": 0, "pow_chain": 0}
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -21,10 +21,15 @@ result):
      ragged batch ((12, 16383), (12, 1)), the NTT at a ragged last column
      tile (2048, 2050), one-column tiles (2^14, 3), n = 1 (1, 4) and both
      passes of an odd-log four-step ((1024, 2048), (2048, 1024)), the NTT's
-     multi-launch path (columns longer than 2^14) at the SHA tier's shapes
-     (the trace chunk's LDE (2^21, 32) and INTT (2^18, 32), the ragged last
-     chunk (2^18, 20), the quotient's coset INTT (2^21, 2) and LDE
-     (2^21, 16)) and at (2^16, 8);
+     long-column path (columns longer than 2^14, a launch a pass of
+     shared-memory stages) at the SHA tier's shapes (the trace chunk's LDE
+     (2^21, 32) and INTT (2^18, 32), the ragged last chunk (2^18, 20), the
+     quotient's coset INTT (2^21, 2) and LDE (2^21, 16)), at (2^16, 8) and
+     at the edges of its design (the smallest long column (2^15, 1) and
+     (2^15, 3) inverse, a ragged column tile; an uneven split (2^17, 5);
+     the largest two-pass column (2^22, 8); three passes (2^23, 4)), each
+     with the kernels one call launches (the NTT library's own count: 2 up
+     to 2^22, 3 above) and their device time under torch.profiler;
      the Edwards add at config 5's lane counts 64, 1024, 4096 and 32768,
      each with edge lanes (an identity operand, a doubling, p + (-p),
      points of order 2 and 4, coordinates in [p, 2^256)), and pow22523 at
@@ -71,7 +76,8 @@ result):
      launches in the warm prove (ntt, ntt_multi, poseidon, edwards_add and
      pow_chain must each be > 0), the peak device memory (under the card's)
      and what was resident before, the prover path prove_auto took (must be
-     streaming); warm bytes == cold bytes, the port's verifier accepts with
+     streaming), the SHA-256 of the warm proof's bytes; warm bytes == cold
+     bytes, the port's verifier accepts with
      "ok: tuple tree", and rejects one word of a claimed digest changed, the
      SHA STARK stripped, and one embedded range data hash changed. One JSON
      line {"config5_sha": {...}}; with --profile, one more warm SHA-tier
@@ -95,6 +101,7 @@ adds and compares are not counted, so the bound is a floor.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import subprocess
 import sys
@@ -148,6 +155,32 @@ def dev_us(e) -> float:
     """A profiler event's own device time in microseconds (the attribute's
     name differs between torch versions)."""
     return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+
+def ntt_launches(fn, tries: int = 3) -> tuple[int, float | None]:
+    """The kernels one call of `fn` launches through the NTT library (its
+    own count), and their device time in ms under torch.profiler: taken
+    again when the profile recorded fewer kernels than were launched, None
+    if none of `tries` recorded them all."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from blobstreamx_tpu_torch import kernels
+
+    lib = kernels.load("ntt")
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        before = lib.bsx_ntt_launch_count()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        launched = lib.bsx_ntt_launch_count() - before
+        rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.key.startswith("ntt_")]
+        if sum(e.count for e in rows) == launched:
+            return launched, sum(dev_us(e) for e in rows) / 1e3
+    return launched, None
 
 
 def max_abs(a, b) -> float:
@@ -251,19 +284,25 @@ def check_ntt(rng, dev):
 
 
 def check_ntt_multi(rng, dev):
-    """The multi-launch path (columns longer than 2^14) at the SHA tier's
-    shapes (column chunks of 32 at 2^18 rows, rate_bits 3)."""
+    """The long-column path (columns longer than 2^14, a launch a pass of
+    shared-memory stages) at the SHA tier's shapes (column chunks of 32 at
+    2^18 rows, rate_bits 3) and at the edges of its design."""
     return _ntt_cases(rng, dev, [
         ((1 << 21, 32), False, "SHA trace chunk LDE"),
         ((1 << 18, 32), True, "SHA trace chunk INTT"),
         ((1 << 18, 20), True, "SHA last (ragged) trace chunk INTT"),
         ((1 << 21, 2), True, "SHA quotient coset INTT"),
         ((1 << 21, 16), False, "SHA quotient LDE"),
-        ((1 << 16, 8), False, "multi-launch path at 2^16"),
-    ])
+        ((1 << 16, 8), False, "long-column path at 2^16"),
+        ((1 << 15, 1), False, "smallest long column, one-column tile"),
+        ((1 << 15, 3), True, "smallest long column, ragged column tile"),
+        ((1 << 17, 5), False, "uneven split (9 + 8), ragged column tile"),
+        ((1 << 22, 8), False, "largest two-pass column"),
+        ((1 << 23, 4), False, "three passes"),
+    ], long_path=True)
 
 
-def _ntt_cases(rng, dev, cases):
+def _ntt_cases(rng, dev, cases, long_path=False):
     from blobstreamx_tpu_torch.fields import gf64
     from blobstreamx_tpu_torch.ops import ntt
 
@@ -275,14 +314,20 @@ def _ntt_cases(rng, dev, cases):
         ms = time_ms(lambda: ntt._ntt_cols_cuda(x, inverse), reps)
         plain_ms = time_ms(lambda: ntt.ntt_cols_plain(x, inverse), 3) if n * c <= 1 << 23 else time_ms(
             lambda: ntt.ntt_cols_plain(x, inverse), 1, warm=1)
+        launches, dev_ms = ntt_launches(lambda: ntt._ntt_cols_cuda(x, inverse))
         log_n = n.bit_length() - 1
         muls = (n // 2) * log_n * c + (n * c if inverse else 0)
         b, by = bound(32 * n * c + 8 * (n // 2), muls * GL_MUL_OPS)
         log(f"  ntt ({n}, {c}) {'inverse' if inverse else 'forward'} [{what}]: mismatches {mism}, "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b:.6f} ms ({by})")
+            f"kernel {ms:.4f} ms, device {dev_ms} ms in {launches} launches, plain {plain_ms:.4f} ms, "
+            f"bound {b:.6f} ms ({by})")
         assert mism == 0, f"ntt kernel disagrees with the plain version at ({n}, {c})"
+        if long_path:
+            most = 2 if n <= 1 << 22 else 3
+            assert 2 <= launches <= most, f"the long-column path took {launches} launches at ({n}, {c})"
         rows.append(dict(shape=f"({n}, {c}) {'inverse' if inverse else 'forward'}", max_abs_err=err,
-                         ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by))
+                         ms=ms, device_ms=dev_ms, launches_per_call=launches, plain_ms=plain_ms, bound_ms=b,
+                         bound_by=by))
         del x
     return rows
 
@@ -790,8 +835,11 @@ def config5_sha(w, smi: str, profile: bool):
     missing = [k for k in PATH_KERNELS["config5_sha"] if launches[k] == 0]
     assert not missing, f"kernels of the SHA-tier path were not launched: {missing} ({launches})"
     assert peak < total, "peak device memory above the card's"
-    assert skip_proof_to_bytes(warm) == skip_proof_to_bytes(cold), "warm and cold SHA-tier proofs differ"
-    del cold
+    blob = skip_proof_to_bytes(warm)
+    digest = hashlib.sha256(blob).hexdigest()
+    log(f"  warm proof: {len(blob)} bytes, SHA-256 {digest}")
+    assert blob == skip_proof_to_bytes(cold), "warm and cold SHA-tier proofs differ"
+    del cold, blob
 
     t0 = time.perf_counter()
     ok, detail = pipeline.verify_skip_proof_detailed(warm)
@@ -809,29 +857,46 @@ def config5_sha(w, smi: str, profile: bool):
         cold_s=cold_s, warm_s=warm_s, verify_s=verify_s, launches=launches, peak_device_bytes=peak,
         resident_before_bytes=resident, card_memory_bytes=total, prover_path=path, sha_blocks=len(sha.aux),
         sha_rows=sha.n_rows, sha_cols=air.n_cols, leaves=len(w.range_heights), tampers_rejected=tampers,
-        cutover_fit=fit, card=smi,
+        proof_sha256=digest, cutover_fit=fit, card=smi,
     )
     log(json.dumps({"config5_sha": rec}))
     if profile:
-        proof = profile_warm("SHA-tier warm prove", prove)
+        from blobstreamx_tpu_torch.ops import ntt
+
+        proof = profile_warm("SHA-tier warm prove", prove, spans=[(ntt, "coset_scale")])
         log("  TimingTree:\n" + "\n".join("    " + line for line in proof.timing.splitlines()))
     return launches
 
 
-def profile_warm(what: str, run):
+def profile_warm(what: str, run, spans=()):
     """One more warm run of a path under torch.profiler (only with
     --profile): device time by kernel name, host time by operator, the
-    number of kernel launches and the device's busy share of the wall.
-    Returns what `run` returned."""
+    number of kernel launches and the device's busy share of the wall; the
+    long-column NTT's kernels and each of `spans` ((module, function name)
+    pairs, the function run inside a profiler range for this run) with
+    their calls and device time. Returns what `run` returned."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        result = run()
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
+    def in_range(name, fn):
+        def wrapped(*a, **k):
+            with record_function(name):
+                return fn(*a, **k)
+        return wrapped
+
+    saved = [(mod, name, getattr(mod, name)) for mod, name in spans]
+    for mod, name, fn in saved:
+        setattr(mod, name, in_range(name, fn))
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            result = run()
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
     ka = prof.key_averages()
     # device kernels only (operator rows would count each kernel twice)
     kernel_rows = [e for e in ka if e.device_type == DeviceType.CUDA]
@@ -847,6 +912,15 @@ def profile_warm(what: str, run):
     ed = [e for e in kernel_rows if e.key.startswith(("edwards_add_kernel", "pow22523_kernel", "sqn_kernel"))]
     log(f"  Ed25519 kernels (edwards add, power chain): {sum(e.count for e in ed)} launches, "
         f"{sum(dev_us(e) for e in ed) / 1e3:.4f} ms device time")
+    long_ntt = [e for e in kernel_rows if e.key.startswith("ntt_long_")]
+    log(f"  long-column NTT kernels: {sum(e.count for e in long_ntt)} launches, "
+        f"{sum(dev_us(e) for e in long_ntt) / 1e3:.4f} ms device time")
+    for _mod, name in spans:
+        # the range as the device ran it (its span on the device's timeline); the host-side row of the
+        # same name sums its operators' device time, nested operators twice
+        rows = [e for e in ka if e.key == name and e.device_type == DeviceType.CUDA]
+        log(f"  span {name}: {sum(e.count for e in rows)} calls, {sum(dev_us(e) for e in rows) / 1e3:.4f} ms "
+            f"device time")
     sort_dev = "self_device_time_total" if hasattr(ka[0], "self_device_time_total") else "self_cuda_time_total"
     log(ka.table(sort_by=sort_dev, row_limit=15, max_name_column_width=60))
     log(ka.table(sort_by="self_cpu_time_total", row_limit=15, max_name_column_width=60))

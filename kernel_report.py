@@ -5,7 +5,7 @@ card, beside the same kernels of other source trees.
 
 Run from the repository root:
 
-    python3 kernel_report.py [--baseline CSRC_DIR]...
+    python3 kernel_report.py [--baseline CSRC_DIR]... [--probe CSRC_DIR]...
 
 It compiles, one nvcc per library and all started together, into
 build/kernel_report/ the poseidon.cu, ntt.cu and ed25519.cu of this checkout
@@ -20,18 +20,24 @@ counted) and its loops: every backward branch, with the instructions of its
 body. From those it prints, for Poseidon, the instructions one thread
 executes per permutation (the static count, plus each of the three round
 loops' bodies once more per extra trip: 4, 22, 4 trips), for the NTT the
-instructions per butterfly of the whole kernel at (2048, 2048) forward
-(see ntt_count), and for ed25519.cu the instructions per field multiply,
-per squaring, per Edwards add and per pow22523 chain (see ed_count). Then
-it times every library's kernel at the shapes of chip_smoke.py's phase 3
-(the NTT's multi-launch path, columns longer than 2^14, at the SHA-256
-tier's shapes among them), in the order this checkout, baselines,
-baselines reversed, this checkout, each time the mean of its two turns,
-both by CUDA events over back-to-back calls and as device time under
-torch.profiler (see device_ms); it holds
+instructions per butterfly of the tile kernel at (2048, 2048) forward and
+of each long-column pass kernel and the whole long-column transform at
+(2^21, 32) forward (see ntt_count), and for ed25519.cu the instructions per
+field multiply, per squaring, per Edwards add and per pow22523 chain (see
+ed_count). Then it times every library's kernel at the shapes of
+chip_smoke.py's phase 3 (the NTT's long-column path, columns longer than
+2^14, at the SHA-256 tier's shapes and the edges of its design among them),
+the twiddle-transpose and the whole four-step NTT at config 4's 2^22, in
+the order this checkout, baselines, baselines reversed, this checkout,
+each time the mean of its two turns, both by CUDA events over back-to-back
+calls and as device time under torch.profiler, also by kernel name (see
+device_ms), with the kernels a call launches; it holds
 every output equal to this checkout's kernel (which chip_smoke.py holds
 equal to the plain PyTorch version), and times one empty launch of this
-checkout's ed25519 library (the launch floor). The last line is one JSON
+checkout's ed25519 library (the launch floor). A --probe directory is timed
+like a baseline but its outputs are not held equal: a design with work
+taken out (the field arithmetic, say) to see what the rest costs. The last
+line is one JSON
 object; the same object is written to chiprun_out/kernel_report.json, and
 each library's kernel SASS to chiprun_out/sass/.
 """
@@ -56,10 +62,13 @@ NTT_SHAPES = (
     (32, 8, True), (256, 8, False), (256, 2, True), (8, 1, True), (1, 4, False),
     (2048, 2048, False), (2048, 2048, True), (1024, 2048, False), (2048, 1024, False),
     (2048, 2050, False), (1 << 14, 3, True),
-    # the multi-launch path (columns longer than 2^14) at the SHA tier's shapes
+    # the long-column path (columns longer than 2^14) at the SHA tier's shapes and its edges
     (1 << 21, 32, False), (1 << 18, 32, True), (1 << 18, 20, True), (1 << 21, 2, True), (1 << 21, 16, False),
-    (1 << 16, 8, False),
+    (1 << 16, 8, False), (1 << 15, 1, False), (1 << 15, 3, True), (1 << 17, 5, False), (1 << 22, 8, False),
+    (1 << 23, 4, False),
 )
+LONG_COUNT_SHAPE = (21, 32)  # (log n, columns) at which the long-column kernels' instructions are counted
+FOUR_STEP_LOG_N = 22  # config 4's polynomial: the twiddle-transpose at (2048, 2048) and the whole four-step
 ED_LANES = (64, 1024, 4096, 32768)  # the Edwards add's lane counts on config 5's path
 CHAIN_CASES = ((None, 64), (None, 4096), (1, 64), (5, 64), (50, 64))  # (sqn k, or pow22523; lanes)
 POW22523_SQUARINGS, POW22523_MULS = 251, 11
@@ -90,7 +99,8 @@ SOURCES = ("poseidon", "ntt", "ed25519")
 
 def libraries(baselines: list[str]):
     """(label, kernel, source dir) of every library to build: this
-    checkout's sources, and each --baseline directory's that it holds."""
+    checkout's sources, and each --baseline (or --probe) directory's that
+    it holds."""
     csrc = ROOT / "blobstreamx_tpu_torch" / "csrc"
     libs = [("shipped", k, csrc) for k in SOURCES]
     for d in baselines:
@@ -187,7 +197,8 @@ def _inside(inner, outer) -> bool:
         and int(inner["end"], 16) <= int(outer["end"], 16)
 
 
-def ntt_count(fn: str, instrs, found: list[dict], log_n: int = 11, c: int = 2048) -> dict | None:
+def ntt_count(fn: str, instrs, found: list[dict], log_n: int = 11, c: int = 2048,
+              long_pass: tuple[int, int] | None = None) -> dict | None:
     """Instructions one thread executes per butterfly of the whole kernel at
     (2^log_n, c) forward: each loop's body times the trips the launch gives
     it, plus the code outside every loop once, over the butterflies a thread
@@ -201,9 +212,17 @@ def ntt_count(fn: str, instrs, found: list[dict], log_n: int = 11, c: int = 2048
     ntt.cu's bsx_ntt_cols launches it): the first pass (STS without LDS or
     STG), the middle passes (LDS and STS) with their enclosing loop, the last
     pass (LDS and STG, radix 2^R with 4 * 2^R STG: lo and hi on both sides of
-    the branch). ntt_smem_kernel (one column a block, one stage a barrier,
-    min(n/2, 1024) threads): the load (LDG and STS), the stage loop (LDS and
-    STS) with its enclosing loop of log n trips, the store (LDS and STG)."""
+    the branch); where log n is not a multiple of 3 the last one or two
+    passes are radix 4 (ntt_stages), a middle one the LDS and STS loop with
+    fewer loads than the radix-8 one. ntt_long_first/mid/last_kernel (one pass of a long column:
+    the same radix passes over a tile of 2^L positions x CT columns;
+    long_pass = (L, log2 CT) of that pass in bsx_ntt_long_plan at (2^log_n,
+    c)): the same roles, per butterfly of the pass's L stages; the last pass
+    of the first and middle kernels writes the u64 intermediate (2^R STG),
+    that of the last kernel (lo, hi) as the tile kernel does. ntt_smem_kernel
+    (one column a block, one stage a barrier, min(n/2, 1024) threads): the
+    load (LDG and STS), the stage loop (LDS and STS) with its enclosing loop
+    of log n trips, the store (LDS and STG)."""
     n = 1 << log_n
     inner = [lp for lp in found if not any(_inside(o, lp) for o in found)]
     top = [lp for lp in found if not any(_inside(lp, o) for o in found)]
@@ -215,31 +234,49 @@ def ntt_count(fn: str, instrs, found: list[dict], log_n: int = 11, c: int = 2048
         return max(hits, key=lambda lp: lp["instructions"]) if hits else None
 
     def outer_extra(lp):
+        """The enclosing loop's own instructions (without the loops in it)."""
         outs = [o for o in found if _inside(lp, o)]
-        return min(o["instructions"] for o in outs) - lp["instructions"] if outs else 0
+        if not outs:
+            return 0
+        out = min(outs, key=lambda o: o["instructions"])
+        return out["instructions"] - sum(i["instructions"] for i in inner if _inside(i, out))
 
-    parts = {}
-    if "ntt_tile_kernel" in fn:
-        log_ct = min(2, c.bit_length() - 1)
+    parts, blocks = {}, None
+    tile = "ntt_tile_kernel" in fn
+    if tile or ("ntt_long_" in fn and long_pass is not None):
+        log_t, log_ct = (log_n, min(2, c.bit_length() - 1)) if tile else long_pass
         ct = 1 << log_ct
-        passes = 1 if log_n <= 3 else (log_n + 2) // 3
-        r_last = log_n - 3 * (passes - 1)
-        threads = min(512, ((ct << max(log_n - 3, 0)) + 31) // 32 * 32)
+        # ntt_stages: radix-8 passes, the last one or two radix 4
+        passes = 1 if log_t <= 3 else (log_t + 2) // 3
+        radix8 = log_t - 2 * passes
+        r_last = 3 if 3 * passes == log_t else 2
+        mid8 = max(0, min(radix8, passes - 1) - 1)
+        mid4 = passes - 2 - mid8
+        threads = min(512, ((ct << max(log_t - 3, 0)) + 31) // 32 * 32)
         first = role(("STS",), ("LDS", "STG"))
-        middle = role(("LDS", "STS"), ("STG",))
-        last = role(("LDS", "STG"), ("STS",), stg=4 << r_last)
-        if passes < 3 or None in (first, middle, last):
+        mids = sorted((lp for lp in inner if ops[id(lp)]["LDS"] and ops[id(lp)]["STS"] and not ops[id(lp)]["STG"]),
+                      key=lambda lp: (ops[id(lp)]["LDS"], lp["instructions"]))
+        middle = mids[-1] if mids else None  # radix 8: the most shared-memory loads
+        middle4 = next((lp for lp in reversed(mids) if ops[id(lp)]["LDS"] < ops[id(middle)]["LDS"]), None) \
+            if mids else None
+        last = role(("LDS", "STG"), ("STS",), stg=(4 if tile or "ntt_long_last" in fn else 1) << r_last)
+        if passes < 3 or radix8 < 1 or None in (first, middle, last) or (mid4 and middle4 is None):
             return None
 
         def trips(r):
-            return -(-(ct << (log_n - r)) // threads)
+            return -(-(ct << (log_t - r)) // threads)
 
         parts["first pass"] = first["instructions"] * trips(3)
-        parts["middle passes"] = (passes - 2) * (middle["instructions"] * trips(3) + outer_extra(middle))
+        parts["middle passes"] = mid8 * (middle["instructions"] * trips(3) + outer_extra(middle))
+        if mid4:
+            parts["middle passes (radix 4)"] = mid4 * (middle4["instructions"] * trips(2) + outer_extra(middle4))
         parts[f"last pass (radix {1 << r_last})"] = last["instructions"] * trips(r_last)
-        butterflies = (n // 2) * log_n * ct / threads
+        butterflies = (1 << (log_t - 1)) * log_t * ct / threads
+        blocks = -(-c // ct) << (log_n - log_t)
         per_trip = {"first pass": first["instructions"] / 12, "middle pass": middle["instructions"] / 12,
                     "last pass": last["instructions"] / ((1 << r_last) // 2 * r_last)}
+        if mid4:
+            per_trip["middle pass (radix 4)"] = middle4["instructions"] / 4
     elif "ntt_smem_kernel" in fn:
         threads = min(n // 2, 1024)
         load = role(("LDG", "STS"), ("LDS",))
@@ -255,9 +292,32 @@ def ntt_count(fn: str, instrs, found: list[dict], log_n: int = 11, c: int = 2048
     else:
         return None
     parts["outside loops"] = len(instrs) - sum(lp["instructions"] for lp in top)
-    return dict(shape=f"({n}, {c}) forward", threads=threads, butterflies_per_thread=butterflies,
-                instructions_per_thread=parts, per_butterfly=round(sum(parts.values()) / butterflies, 2),
-                loop_body_per_butterfly=per_trip)
+    out = dict(shape=f"({n}, {c}) forward", threads=threads, butterflies_per_thread=butterflies,
+               instructions_per_thread=parts, per_butterfly=round(sum(parts.values()) / butterflies, 2),
+               loop_body_per_butterfly=per_trip)
+    if long_pass is not None:
+        out.update(stages=long_pass[0], blocks=blocks)
+    return out
+
+
+def long_transform_count(counts: list[dict]) -> float | None:
+    """Instructions per butterfly of a whole long-column transform from its
+    passes' ntt_count: every thread's instructions over every butterfly."""
+    if not counts or None in counts:
+        return None
+    instr = sum(sum(k["instructions_per_thread"].values()) * k["threads"] * k["blocks"] for k in counts)
+    butterflies = sum(k["butterflies_per_thread"] * k["threads"] * k["blocks"] for k in counts)
+    return round(instr / butterflies, 2)
+
+
+def long_plan(lib, log_n: int, c: int) -> list[tuple[int, int]] | None:
+    """(stages, log2 column tile) of each pass of a library's long-column
+    plan at (2^log_n, c) (bsx_ntt_long_plan), or None for a design without one."""
+    if getattr(lib, "bsx_ntt_long_plan", None) is None:
+        return None
+    out = (ctypes.c_int * 8)()
+    passes = lib.bsx_ntt_long_plan(log_n, c, out)
+    return [(out[1 + p], out[0]) for p in range(passes)]
 
 
 def ed_count(probe: dict, add_static: int | None) -> dict | None:
@@ -288,13 +348,14 @@ def per_permutation(static: int, round_loops: list[dict]) -> int | None:
     return static + sum(lp["instructions"] * (t - 1) for lp, t in zip(round_loops, (4, 22, 4)))
 
 
-def device_ms(fn, reps: int, tries: int = 3) -> float | None:
+def device_ms(fn, reps: int, tries: int = 3, launches: int = 1) -> tuple[float | None, dict]:
     """The device time of the kernels `fn` launches, per call: their
-    durations under torch.profiler over `reps` calls, over `reps`. Unlike
-    CUDA events around back-to-back calls it leaves out the host's time
-    between launches, which is what such a loop measures for a kernel
-    shorter than its launch. A profile that recorded no kernel is taken
-    again; None if none of `tries` did."""
+    durations under torch.profiler over `reps` calls, over `reps`; and the
+    same by kernel name. Unlike CUDA events around back-to-back calls it
+    leaves out the host's time between launches, which is what such a loop
+    measures for a kernel shorter than its launch. A profile that recorded
+    fewer than `launches` kernels a call is taken again; (None, {}) if none
+    of `tries` recorded them."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -309,9 +370,10 @@ def device_ms(fn, reps: int, tries: int = 3) -> float | None:
                 fn()
             torch.cuda.synchronize()
         kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        if sum(e.count for e in kernels) >= reps:
-            return sum(dev_us(e) for e in kernels) / 1e3 / reps
-    return None
+        if sum(e.count for e in kernels) >= reps * launches:
+            by_name = {e.key.split("(")[0]: dev_us(e) / 1e3 / reps for e in kernels}
+            return sum(dev_us(e) for e in kernels) / 1e3 / reps, by_name
+    return None, {}
 
 
 def main() -> int:
@@ -331,12 +393,14 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--baseline", action="append", default=[],
                     help="a csrc/ directory holding other designs' poseidon.cu, ntt.cu or ed25519.cu (repeatable)")
+    ap.add_argument("--probe", action="append", default=[],
+                    help="like --baseline, but its outputs are not held equal to this checkout's (repeatable)")
     args = ap.parse_args()
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     log(smi)
-    libs = libraries(args.baseline)
+    libs = libraries(args.baseline + args.probe)
     built = build(libs)
     SASS_DIR.mkdir(parents=True, exist_ok=True)
     report = {"card": smi, "libraries": []}
@@ -347,16 +411,29 @@ def main() -> int:
         entry = dict(label=label, source=name, ptxas=ptxas_lines(text), kernels={})
         dump = []
         for fn, instrs in sass(path).items():
-            if not any(k in fn for k in ("poseidon_kernel", "ntt_smem_kernel", "ntt_tile_kernel", "edwards_add_kernel",
-                                         "pow22523_kernel", "sqn_kernel")):
+            if not any(k in fn for k in ("poseidon_kernel", "ntt_smem_kernel", "ntt_tile_kernel", "ntt_long_",
+                                         "twiddle_transpose_kernel", "edwards_add_kernel", "pow22523_kernel",
+                                         "sqn_kernel")):
                 continue
             dump += [f"Function : {fn}"] + [f"/*{a:04x}*/ {t}" for a, t in instrs]
             k = dict(static_instructions=len(instrs), loops=loops(instrs))
             if "poseidon_kernel" in fn:
                 k["per_permutation"] = per_permutation(len(instrs), k["loops"])
-            elif "ntt_" in fn:
+            elif "ntt_tile_kernel" in fn or "ntt_smem_kernel" in fn:
                 k["per_butterfly"] = ntt_count(fn, instrs, k["loops"])
+            elif "ntt_long_" in fn:
+                plan = long_plan(ctypes.CDLL(str(path)), *LONG_COUNT_SHAPE) or []
+                role = 0 if "first" in fn else len(plan) - 1 if "last" in fn else 1 if len(plan) > 2 else None
+                k["per_butterfly"] = None if role is None or not plan else ntt_count(
+                    fn, instrs, k["loops"], *LONG_COUNT_SHAPE, long_pass=plan[role])
             entry["kernels"][fn] = k
+        if name == "ntt":
+            plan = long_plan(ctypes.CDLL(str(path)), *LONG_COUNT_SHAPE) or []
+            by_role = {kind: next((k["per_butterfly"] for fn, k in entry["kernels"].items()
+                                   if f"ntt_long_{kind}_kernel" in fn), None) for kind in ("first", "mid", "last")}
+            roles = ["first"] + ["mid"] * (len(plan) - 2) + ["last"] if plan else []
+            entry["long_plan"] = plan
+            entry["long_per_butterfly"] = long_transform_count([by_role[r] for r in roles])
         if name == "ed25519":
             add = [k["static_instructions"] for fn, k in entry["kernels"].items() if "edwards_add_kernel" in fn]
             entry["field_counts"] = ed_count(probes[label], add[0] if add else None)
@@ -394,6 +471,29 @@ def main() -> int:
                                        None if scratch is None else scratch.data_ptr(), stream), "ntt")
         return out
 
+    def tt_call(lib, m, log_n, inverse):
+        n1, n2 = m[0].shape
+        tw = ntt._power_table_device(log_n, inverse, "cuda")
+        out = (torch.empty((n2, n1), dtype=torch.int64, device="cuda"),
+               torch.empty((n2, n1), dtype=torch.int64, device="cuda"))
+        kernels.check(lib.bsx_twiddle_transpose(m[0].data_ptr(), m[1].data_ptr(), out[0].data_ptr(),
+                                                out[1].data_ptr(), tw.data_ptr(), n1.bit_length() - 1,
+                                                n2.bit_length() - 1, stream), "twiddle-transpose")
+        return out
+
+    def ntt_kind_call(lib, x, arg):
+        """arg = (kind, inverse): "cols" is bsx_ntt_cols on an (n, C) batch,
+        "tt" the twiddle-transpose of config 4's (n1, n2) matrix, "four_step"
+        the whole four-step NTT of one polynomial (ntt.py's _four_step on this
+        library's two kernels)."""
+        kind, inverse = arg
+        if kind == "cols":
+            return ntt_call(lib, x, inverse)
+        if kind == "tt":
+            return tt_call(lib, x, FOUR_STEP_LOG_N, inverse)
+        return ntt._four_step(x, inverse, lambda m, inv: ntt_call(lib, m, inv),
+                              lambda m, log_n, inv: tt_call(lib, m, log_n, inv))
+
     def add_call(lib, coords):
         n = coords[0].shape[1]
         outs = tuple(torch.empty_like(coords[0]) for _ in range(4))
@@ -414,7 +514,12 @@ def main() -> int:
         return [torch.from_numpy(rng.integers(0, 1 << 16, size=(16, n), dtype=np.int64)).cuda() for _ in range(count)]
 
     cases = [("poseidon", f"(12, {n})", (12, n), None) for n in POSEIDON_SHAPES]
-    cases += [("ntt", f"({n}, {c}) {'inverse' if inv else 'forward'}", (n, c), inv) for n, c, inv in NTT_SHAPES]
+    direction = {False: "forward", True: "inverse"}
+    cases += [("ntt", f"({n}, {c}) {direction[inv]}", (n, c), ("cols", inv)) for n, c, inv in NTT_SHAPES]
+    n1, n2 = ntt.four_step_shape(FOUR_STEP_LOG_N)
+    cases += [("ntt", f"twiddle_transpose ({n1}, {n2}) {direction[inv]}", (n1, n2), ("tt", inv)) for inv in (False, True)]
+    cases += [("ntt", f"four-step 2^{FOUR_STEP_LOG_N} {direction[inv]}", (1 << FOUR_STEP_LOG_N,), ("four_step", inv))
+              for inv in (False, True)]
     cases += [("ed25519", f"edwards add, {n} lanes", n, "add") for n in ED_LANES]
     cases += [("ed25519", f"{'pow22523' if k is None else f'sqn k={k}'}, {n} lanes", n, k) for k, n in CHAIN_CASES]
     times = []
@@ -424,7 +529,7 @@ def main() -> int:
             size = 1
         else:
             x = gf64.from_u64(rng.integers(0, gf64.P, size=dims, dtype=np.uint64), "cuda")
-            size = dims[0] * dims[1]
+            size = int(np.prod(dims))
         labels = [label for label, nm, _s in libs if nm == name]
         order = labels + labels[::-1]
 
@@ -433,23 +538,43 @@ def main() -> int:
             if name == "poseidon":
                 return poseidon_call(lib, x)
             if name == "ntt":
-                return ntt_call(lib, x, arg)
+                return ntt_kind_call(lib, x, arg)
             return add_call(lib, x) if arg == "add" else chain_call(lib, x, arg)
+
+        def launches(label):
+            """Kernels one call launches: the library's own count of its NTT
+            launches where it keeps one (bsx_ntt_launch_count), plus the
+            four-step's twiddle-transpose; else 1."""
+            count = getattr(handles[(label, name)], "bsx_ntt_launch_count", None)
+            if count is None or arg[0] == "tt":
+                return 1
+            before = count()
+            call(label)
+            return count() - before + (arg[0] == "four_step")
 
         want = call("shipped")
         reps = 20 if size <= 1 << 20 else 5
-        row = dict(kernel=name, shape=shape, ms={}, device_ms={}, mismatches={})
-        turns = {label: ([], []) for label in labels}
+        row = dict(kernel=name, shape=shape, ms={}, device_ms={}, device_ms_by_kernel={}, launches={},
+                   mismatches={})
+        turns = {label: ([], [], []) for label in labels}
         for label in order:
             got = call(label)
             row["mismatches"][label] = sum(int((g != w).sum().item()) for g, w in zip(got, want))  # words
+            if name == "ntt":
+                row["launches"][label] = launches(label)
             turns[label][0].append(time_ms(lambda: call(label), reps))
-            turns[label][1].append(device_ms(lambda: call(label), reps))
-        for label, (events, device) in turns.items():
+            dev, by_kernel = device_ms(lambda: call(label), reps, launches=row["launches"].get(label, 1))
+            turns[label][1].append(dev)
+            turns[label][2].append(by_kernel)
+        for label, (events, device, by_kernel) in turns.items():
             row["ms"][label] = sum(events) / 2
             row["device_ms"][label] = None if None in device else sum(device) / 2
+            if all(by_kernel):
+                row["device_ms_by_kernel"][label] = {k: sum(b.get(k, 0.0) for b in by_kernel) / 2
+                                                     for k in by_kernel[0]}
         log(json.dumps(row))
-        assert not any(row["mismatches"].values()), f"a baseline disagrees with the shipped kernel: {row}"
+        assert not any(v for label, v in row["mismatches"].items() if label not in args.probe), \
+            f"a baseline disagrees with the shipped kernel: {row}"
         times.append(row)
         del x
     floor = handles[("shipped", "ed25519")].bsx_launch_floor

@@ -142,3 +142,41 @@ ptxas info    : Used 40 registers, 376 bytes cmem[0]"""
         "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "ptxas info    : Used 40 registers, 376 bytes cmem[0]",
     ]
+
+
+LONG_LAST_BLOCKS = [
+    ["MOV"] * 5,                                                   # 0: straight code
+    ["LDG", "LDG", "IMAD", "STS", "STS", ("BRA", 1)],              # 1: first pass (u64 in), 6
+    ["MOV"],                                                       # 2: pass loop head
+    ["LDS", "LDS", "IMAD", "STS", "STS", ("BRA", 3)],              # 3: middle pass, radix 8, 6
+    ["LDS", "IMAD", "STS", ("BRA", 4)],                            # 4: middle pass, radix 4, 4
+    ["BAR", ("BRA", 2)],                                           # 5: pass loop, 13 in all
+    ["LDS"] + ["STG"] * 16 + [("BRA", 6)],                         # 6: last pass, radix 4, (lo, hi) out
+    ["LDS"] + ["STG"] * 32 + [("BRA", 7)],                         # 7: last pass, radix 8
+    ["EXIT"],
+]
+
+
+def test_ntt_count_long_pass_kernel_per_butterfly():
+    """The last pass of (2^21, 32) forward: 10 stages as radix 8, 8, 4, 4 over
+    tiles of 2^10 positions x 4 columns, 512 threads (1 trip a radix-8 pass,
+    2 a radix-4 one), 16384 blocks; 40 butterflies a thread."""
+    instrs = listing(*LONG_LAST_BLOCKS)
+    got = kr.ntt_count("_Z20ntt_long_last_kernelPKlS0_PlS1_PmPKmiiiiiim", instrs, kr.loops(instrs), 21, 32,
+                       long_pass=(10, 2))
+    parts = {"first pass": 6 * 1, "middle passes": 1 * (6 * 1 + 3), "middle passes (radix 4)": 1 * (4 * 2 + 3),
+             "last pass (radix 4)": 18 * 2, "outside loops": 77 - (6 + 13 + 18 + 34)}
+    assert got["instructions_per_thread"] == parts
+    assert (got["threads"], got["butterflies_per_thread"], got["blocks"], got["stages"]) == (512, 40.0, 16384, 10)
+    assert got["per_butterfly"] == round(sum(parts.values()) / 40, 2)
+    # the first and middle kernels write the u64 intermediate: one STG an element, none matches here
+    assert kr.ntt_count("_Z21ntt_long_first_kernelPKlS0_PlS1_PmPKmiiiiiim", instrs, kr.loops(instrs), 21, 32,
+                        long_pass=(10, 2)) is None
+
+
+def test_long_transform_count_weights_passes_by_their_work():
+    first = dict(instructions_per_thread={"a": 100}, threads=512, blocks=10, butterflies_per_thread=4.0)
+    last = dict(instructions_per_thread={"a": 30, "b": 30}, threads=256, blocks=20, butterflies_per_thread=2.0)
+    want = (100 * 512 * 10 + 60 * 256 * 20) / (4 * 512 * 10 + 2 * 256 * 20)
+    assert kr.long_transform_count([first, last]) == round(want, 2)
+    assert kr.long_transform_count([first, None]) is None

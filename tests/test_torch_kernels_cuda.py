@@ -37,8 +37,10 @@ def fe(rng, n):
 @pytest.mark.parametrize("n,c,inverse", [
     (32, 8, True), (256, 8, False), (256, 2, True), (1 << 15, 4, False), (8, 1, True),
     (2048, 2050, False), (1 << 14, 3, True), (1, 4, False), (1024, 2048, False), (2048, 1024, True),
-    # the multi-launch path at the SHA tier's shapes
+    # the long-column path at the SHA tier's shapes and the edges of its design: the smallest
+    # long column, a ragged column tile, an uneven split, the largest two-pass and a three-pass column
     (1 << 21, 32, False), (1 << 18, 20, True), (1 << 21, 2, True),
+    (1 << 15, 1, False), (1 << 15, 3, True), (1 << 17, 5, False), (1 << 22, 8, False), (1 << 23, 4, False),
 ])
 def test_ntt_kernel(n, c, inverse):
     from blobstreamx_tpu_torch.ops import ntt

@@ -41,7 +41,8 @@ def ref(x, *args, fn):
     return jgf.to_u64(fn(jgf.from_u64(x), *args))
 
 
-@pytest.mark.parametrize("n,c,inverse", [(8, 3, False), (32, 8, True), (64, 8, False), (256, 2, True)])
+@pytest.mark.parametrize("n,c,inverse", [(8, 3, False), (32, 8, True), (64, 8, False), (256, 2, True),
+                                         (1 << 15, 3, False)])  # above the tile kernel's 2^14
 def test_ntt_cols_matches_jax(n, c, inverse):
     x = gl_matrix(n + c, (n, c))
     got = port(x, inverse, fn=tntt.ntt_cols)
