@@ -184,48 +184,72 @@ def build_skip_witness(chain: ChainFixture, trusted_height: int, target_height: 
     )
 
 
+def _valset_from_fields(d) -> ValSetWitness:
+    return ValSetWitness(
+        pubkeys=[bytes(pk) for pk in d["pubkeys"]],
+        powers=np.asarray(d["powers"], dtype=np.uint64),
+        blocks=np.asarray(d["blocks"], dtype=np.uint32),
+        n_blocks=np.asarray(d["n_blocks"], dtype=np.int32),
+        expected_root=bytes(d["expected_root"]),
+    )
+
+
+def _inclusion_from_fields(d) -> InclusionWitness:
+    return InclusionWitness(
+        *(np.asarray(d[k], dtype=np.uint32) for k in ("values", "siblings", "dirs", "roots"))
+    )
+
+
+def _chain_link_from_fields(d) -> ChainLinkWitness:
+    return ChainLinkWitness(
+        blocks=np.asarray(d["blocks"], dtype=np.uint32),
+        n_blocks=np.asarray(d["n_blocks"], dtype=np.int32),
+        siblings=np.asarray(d["siblings"], dtype=np.uint32),
+        dirs=np.asarray(d["dirs"], dtype=np.uint32),
+        roots=np.asarray(d["roots"], dtype=np.uint32),
+    )
+
+
 def witness_from_reference(fields: dict) -> SkipWitness:
     """A SkipWitness from the JAX package's witness fields, e.g.
     ``dataclasses.asdict(jax_witness)``: numpy arrays, bytes and ints, with
     the nested witnesses as dicts. The two packages then prove the same
     input."""
     f = fields
-
-    def valset(d) -> ValSetWitness:
-        return ValSetWitness(
-            pubkeys=[bytes(pk) for pk in d["pubkeys"]],
-            powers=np.asarray(d["powers"], dtype=np.uint64),
-            blocks=np.asarray(d["blocks"], dtype=np.uint32),
-            n_blocks=np.asarray(d["n_blocks"], dtype=np.int32),
-            expected_root=bytes(d["expected_root"]),
-        )
-
-    def inclusion(d) -> InclusionWitness:
-        return InclusionWitness(
-            *(np.asarray(d[k], dtype=np.uint32) for k in ("values", "siblings", "dirs", "roots"))
-        )
-
-    cl = f["chain_links"]
     return SkipWitness(
         trusted_height=int(f["trusted_height"]),
         target_height=int(f["target_height"]),
         trusted_root=bytes(f["trusted_root"]),
         target_root=bytes(f["target_root"]),
-        trusted_set=valset(f["trusted_set"]),
-        target_set=valset(f["target_set"]),
+        trusted_set=_valset_from_fields(f["trusted_set"]),
+        target_set=_valset_from_fields(f["target_set"]),
         sign_bytes=bytes(f["sign_bytes"]),
         signatures=[bytes(s) for s in f["signatures"]],
         target_signed=np.asarray(f["target_signed"], dtype=bool),
         trusted_signed=np.asarray(f["trusted_signed"], dtype=bool),
-        valset_inclusions=inclusion(f["valset_inclusions"]),
-        data_hash_inclusions=inclusion(f["data_hash_inclusions"]),
-        chain_links=ChainLinkWitness(
-            blocks=np.asarray(cl["blocks"], dtype=np.uint32),
-            n_blocks=np.asarray(cl["n_blocks"], dtype=np.int32),
-            siblings=np.asarray(cl["siblings"], dtype=np.uint32),
-            dirs=np.asarray(cl["dirs"], dtype=np.uint32),
-            roots=np.asarray(cl["roots"], dtype=np.uint32),
-        ),
+        valset_inclusions=_inclusion_from_fields(f["valset_inclusions"]),
+        data_hash_inclusions=_inclusion_from_fields(f["data_hash_inclusions"]),
+        chain_links=_chain_link_from_fields(f["chain_links"]),
         range_heights=np.asarray(f["range_heights"], dtype=np.uint64),
         range_data_hashes=[bytes(h) for h in f["range_data_hashes"]],
+    )
+
+
+def step_witness_from_reference(fields: dict):
+    """A circuits.step.StepWitness from the JAX package's step witness
+    fields (``dataclasses.asdict(jax_step_witness)``), as
+    witness_from_reference does for the skip witness."""
+    from blobstreamx_tpu_torch.circuits.step import StepWitness
+
+    f = fields
+    return StepWitness(
+        prev_height=int(f["prev_height"]),
+        prev_root=bytes(f["prev_root"]),
+        new_root=bytes(f["new_root"]),
+        new_set=_valset_from_fields(f["new_set"]),
+        sign_bytes=bytes(f["sign_bytes"]),
+        signatures=[bytes(s) for s in f["signatures"]],
+        signed=np.asarray(f["signed"], dtype=bool),
+        inclusions=_inclusion_from_fields(f["inclusions"]),
+        chain_link=_chain_link_from_fields(f["chain_link"]),
     )

@@ -1,4 +1,5 @@
-"""The skip prover pipeline: the default trust tier and the SHA-256 tier.
+"""The skip and step prover pipelines: the skip proof at the default, the
+SHA-256 and the full-coverage SHA-256 tiers, and the step proof.
 
 Pipeline for one skip proof:
 
@@ -6,9 +7,13 @@ Pipeline for one skip proof:
   consensus device: valset hashing, Ed25519 MSM batch, inclusion folds,
             chain links, power sums, data commitment
   trace     host: lay out the consensus-arithmetic execution trace
-  sha_stark device (with_sha_stark=True): the batched SHA-256 STARK over
-            every hash of the data-commitment tuple tree
+  sha_stark device (with_sha_stark=True or "full"): the batched SHA-256
+            STARK over every hash of the data-commitment tuple tree, or
+            over every hash of the skip relation, one STARK a block shard
   stark     device: DEEP-ALI prove over SkipAir
+
+A step proof (header h -> h+1, prove_step) runs the step relation's
+consensus (circuits.step) and a DEEP-ALI prove over StepAir.
 
 Trust model:
 
@@ -21,10 +26,15 @@ Trust model:
                        bit-exact deterministic device recomputation.
   with_sha_stark=True  additionally proves the data-commitment tuple tree's
                        hashes in the batched SHA-256 STARK (prover.sha_claims).
+  with_sha_stark="full" proves EVERY SHA-256 of the skip relation — both
+                       validator-set trees, the validators_hash inclusion
+                       paths, every chain link and data_hash path, and the
+                       tuple tree — in batched SHA-256 STARKs, one a block
+                       shard (prover.skip_claims).
 
-The JAX package's other tiers (with_sha_stark="full", with_ed_stark=True)
-are not ported yet (ROADMAP queue 1): prove_skip refuses them and the
-verifier fails closed on a proof that carries one.
+The JAX package's Ed25519 STARK tier (with_ed_stark=True) is not ported yet
+(ROADMAP queue 1): prove_skip refuses it and the verifier fails closed on a
+proof that carries one.
 
 Bundle binding: the SHA STARK is proven FIRST and a SHA-256 digest of its
 claim list enters the main SkipAir STARK's public inputs (publics 30..37;
@@ -34,8 +44,8 @@ config and tier, and either package's verifier accepts the other's proofs.
 
 verify_skip_proof() re-checks the STARK(s), the threshold inequalities over
 the public integers, the digest binding, and — given the claimed witness
-data, passed or embedded in the proof — the tuple-tree claim walk and the
-signer/power binding.
+data, passed or embedded in the proof — the tuple-tree or full-coverage
+claim walk and the signer/power binding.
 """
 
 from __future__ import annotations
@@ -46,10 +56,11 @@ from dataclasses import dataclass
 import numpy as np
 
 from blobstreamx_tpu_torch.circuits.skip import SkipCheckResult, SkipPublicOutputs, verify_skip
+from blobstreamx_tpu_torch.circuits.step import StepCheckResult, StepPublicOutputs, verify_step
 from blobstreamx_tpu_torch.circuits.witness import SkipWitness
 from blobstreamx_tpu_torch.device import resolve
 from blobstreamx_tpu_torch.golden import goldilocks as gold
-from blobstreamx_tpu_torch.prover import sha_claims, stark
+from blobstreamx_tpu_torch.prover import sha_claims, skip_claims, stark
 from blobstreamx_tpu_torch.prover.air import Air
 from blobstreamx_tpu_torch.prover.config import StarkConfig
 from blobstreamx_tpu_torch.utils.timing import TimingTree
@@ -101,6 +112,31 @@ class SkipAir(Air):
         cs.append((alg.sub(ra, publics[2]), "last"))
         cs.append((alg.sub(rt, publics[3]), "last"))
         return cs
+
+
+class StepAir(Air):
+    """Consensus arithmetic of the step relation, one validator of the NEW
+    set per row: p (power), b (signed bit), a (signed acc), t (total acc).
+    Publics: [0] signed, [1] total, then 8 u32 words each of prev_root and
+    new_root, then prev_height, new_height (20)."""
+
+    n_cols = 4
+    max_degree = 2
+    N_PUBLICS = 20
+
+    def eval_constraints(self, local, nxt, publics, alg, **frame):
+        p, b, a, t = local
+        p_n, b_n, a_n, t_n = nxt
+        one = alg.const(1)
+        return [
+            (alg.mul(b, alg.sub(b, one)), "all"),
+            (alg.sub(a, alg.mul(b, p)), "first"),
+            (alg.sub(t, p), "first"),
+            (alg.sub(a_n, alg.add(a, alg.mul(b_n, p_n))), "transition"),
+            (alg.sub(t_n, alg.add(t, p_n)), "transition"),
+            (alg.sub(a, publics[0]), "last"),
+            (alg.sub(t, publics[1]), "last"),
+        ]
 
 
 def _pack_bytes32(b: bytes) -> list[int]:
@@ -192,7 +228,8 @@ class SkipProof:
     stark: stark.StarkProof
     timing: str  # rendered TimingTree
     # the batched-SHA STARK proving every hash of the data-commitment tuple
-    # tree (prover.sha_claims), when proven with with_sha_stark=True
+    # tree (prover.sha_claims.ShaStarkProof, with_sha_stark=True) or every
+    # hash of the skip relation (prover.skip_claims.SkipShaProof, "full")
     sha_stark: object | None = None
     # the Ed25519 scalar-mul STARK of the JAX package (not ported yet: the
     # port's prover never sets it and its verifier fails closed on it)
@@ -262,13 +299,11 @@ def prove_skip(
 
     with_sha_stark=True also proves the data-commitment tuple tree in the
     batched SHA-256 STARK (through stark_stream.prove_auto, which streams it
-    when the standard prover would not fit the device) and embeds the claim
-    bundle in the proof. with_sha_stark="full" and with_ed_stark=True are
-    the JAX package's tiers not ported yet: they raise NotImplementedError."""
-    if with_sha_stark not in (False, True):
-        raise NotImplementedError(
-            f"with_sha_stark={with_sha_stark!r} (the full-coverage SHA STARK) is not ported yet: ROADMAP queue 1"
-        )
+    when the standard prover would not fit the device); with_sha_stark="full"
+    proves every hash of the skip relation, one STARK a shard of at most
+    skip_claims.DEFAULT_MAX_SHARD_BLOCKS blocks, each through prove_auto.
+    Either embeds the claim bundle in the proof. with_ed_stark=True is the
+    JAX package's tier not ported yet: it raises NotImplementedError."""
     if with_ed_stark:
         raise NotImplementedError("with_ed_stark (the Ed25519 STARK) is not ported yet: ROADMAP queue 1")
     device = resolve(device)
@@ -284,7 +319,10 @@ def prove_skip(
     # the aux STARK is proven BEFORE the main STARK so its claim digest
     # enters the main transcript
     sha_proof = None
-    if with_sha_stark:
+    if with_sha_stark == "full":
+        with timing.scope("sha_stark", items=len(witness.range_heights), unit="headers", sync=device):
+            sha_proof = skip_claims.prove_skip_sha_stark(witness, config, device=device, timing=timing)
+    elif with_sha_stark:
         heights = [int(h) for h in witness.range_heights]
         with timing.scope("sha_stark", items=len(heights), unit="leaves", sync=device):
             sha_proof, sha_root = sha_claims.prove_data_commitment_stark(
@@ -308,6 +346,94 @@ def prove_skip(
         # present, so the serialized proof verifies self-contained
         claims=claim_data_from_witness(witness) if sha_proof is not None else None,
     )
+
+
+@dataclass
+class StepProof:
+    outputs: StepPublicOutputs
+    publics: list[int]
+    n_rows: int
+    stark: stark.StarkProof
+    timing: str  # rendered TimingTree
+
+
+def step_publics(res: StepCheckResult) -> list[int]:
+    out = res.outputs
+    return (
+        [res.signed_power, res.total_power]
+        + _pack_bytes32(out.prev_root)
+        + _pack_bytes32(out.new_root)
+        + [out.prev_height, out.new_height]
+    )
+
+
+def build_step_trace(res: StepCheckResult) -> np.ndarray:
+    n = max(len(res.powers), 2)
+    n = 1 << (n - 1).bit_length()
+    p = np.zeros(n, dtype=np.uint64)
+    b = np.zeros(n, dtype=np.uint64)
+    p[: len(res.powers)] = res.powers
+    b[: len(res.signed)] = res.signed.astype(np.uint64)
+    acc = np.cumsum((p * b).astype(object))
+    tot = np.cumsum(p.astype(object))
+    return np.stack(
+        [
+            p,
+            b,
+            np.array([int(x) % P for x in acc], np.uint64),
+            np.array([int(x) % P for x in tot], np.uint64),
+        ],
+        axis=1,
+    )
+
+
+def prove_step(witness, config: StarkConfig | None = None, device=None) -> StepProof:
+    """The step pipeline (header h -> h+1) on `device` (default: the card;
+    raises when CUDA is missing unless device="cpu" is passed): the step
+    relation's consensus checks, then the DEEP-ALI STARK over StepAir.
+    Raises ValueError (fail-stop) if the witness does not satisfy it."""
+    device = resolve(device)
+    config = config or StarkConfig()
+    timing = TimingTree("prove_step")
+    with timing.scope("consensus", sync=device):
+        res = verify_step(witness, device=device)
+    if not res.ok:
+        raise ValueError(f"step relation unsatisfied: {res.reasons}")
+    with timing.scope("trace"):
+        trace = build_step_trace(res)
+        publics = step_publics(res)
+    with timing.scope("stark", items=trace.shape[0], unit="rows", sync=device):
+        proof = stark.prove(StepAir(), trace, publics, config, device=device)
+    timing.finish()
+    return StepProof(
+        outputs=res.outputs,
+        publics=publics,
+        n_rows=trace.shape[0],
+        stark=proof,
+        timing=timing.render(),
+    )
+
+
+def verify_step_proof(proof: StepProof, config: StarkConfig | None = None) -> bool:
+    """Host verifier for a step proof: >2/3 threshold over the public sums,
+    public consistency with the claimed outputs, and the STARK."""
+    config = config or StarkConfig()
+    pub = proof.publics
+    if len(pub) != StepAir.N_PUBLICS:
+        return False
+    signed, total = pub[:2]
+    if not signed * 3 > total * 2:
+        return False
+    out = proof.outputs
+    if pub[2:10] != _pack_bytes32(out.prev_root):
+        return False
+    if pub[10:18] != _pack_bytes32(out.new_root):
+        return False
+    if pub[18:] != [out.prev_height, out.new_height]:
+        return False
+    if out.new_height != out.prev_height + 1:
+        return False
+    return stark.verify(StepAir(), proof.stark, pub, config, proof.n_rows)
 
 
 @dataclass
@@ -407,10 +533,11 @@ def verify_skip_proof_detailed(
     a stripped or swapped aux proof fails here even without claim data.
 
     With claims (supplied, or else embedded in the proof): the SHA STARK's
-    tuple-tree claim walk, and the signer/power binding between the claimed
-    lists and the public sums. A SHA STARK without claim data, and the JAX
-    package's full-coverage SHA and Ed25519 STARKs (not ported yet), fail
-    closed."""
+    claim walk (the tuple tree, or for a "full" proof the full-coverage walk
+    — validator trees, inclusion paths, chain links — anchored at the public
+    roots), and the signer/power binding between the claimed lists and the
+    public sums. A SHA STARK without the claim data its walk needs, and the
+    JAX package's Ed25519 STARK (not ported yet), fail closed."""
     config = config or StarkConfig()
     claims_src = "supplied"
     if claims is None:
@@ -456,25 +583,40 @@ def verify_skip_proof_detailed(
     detail["stark"] = "ok"
 
     if proof.sha_stark is not None:
-        if hasattr(proof.sha_stark, "link_fields"):
-            detail["sha_stark"] = "failed: the full-coverage SHA STARK is not ported yet (fail closed)"
-            return False, detail
-        if claims is None or claims.range_heights is None:
+        is_full = hasattr(proof.sha_stark, "link_fields")
+        have_range = claims is not None and claims.range_heights is not None
+        if is_full and have_range and claims.trusted_vals is not None:
+            if not skip_claims.verify_skip_sha_stark(
+                proof.sha_stark,
+                trusted_root=out.trusted_root,
+                target_root=out.target_root,
+                trusted_vals=claims.trusted_vals,
+                target_vals=claims.target_vals,
+                range_heights=[int(h) for h in claims.range_heights],
+                range_data_hashes=claims.range_data_hashes,
+                data_commitment=out.data_commitment,
+                config=config,
+            ):
+                detail["sha_stark"] = "failed: full claim walk rejected"
+                return False, detail
+            detail["sha_stark"] = "ok: full coverage"
+        elif not is_full and have_range:
+            if not sha_claims.verify_data_commitment_stark(
+                proof.sha_stark,
+                [int(h) for h in claims.range_heights],
+                claims.range_data_hashes,
+                out.data_commitment,
+                config,
+            ):
+                detail["sha_stark"] = "failed: tuple-tree claim walk rejected"
+                return False, detail
+            detail["sha_stark"] = "ok: tuple tree"
+        else:
             # FAIL CLOSED: a proof carrying an aux STARK promises its hash
             # claims were proven; without the claim data they cannot be
             # checked, and "present but unverified" must not read as ok
             detail["sha_stark"] = "failed: claim data unavailable (fail closed)"
             return False, detail
-        if not sha_claims.verify_data_commitment_stark(
-            proof.sha_stark,
-            [int(h) for h in claims.range_heights],
-            claims.range_data_hashes,
-            out.data_commitment,
-            config,
-        ):
-            detail["sha_stark"] = "failed: tuple-tree claim walk rejected"
-            return False, detail
-        detail["sha_stark"] = "ok: tuple tree"
 
     if proof.ed_stark is not None:
         detail["ed_stark"] = "failed: the Ed25519 STARK is not ported yet (fail closed)"

@@ -1,12 +1,12 @@
 """Canonical proof (de)serialization — JSON-based, integers only, so the
 encoding is lossless and platform-independent (bit-exactness is the
 invariant; there are no floats anywhere in a proof). Covers StarkProof,
-the skip proof at the default and SHA-256 tiers (its batched-SHA STARK and
-the embedded claim bundle), in the JAX package's schema: the bytes of a
-port proof equal the JAX package's for the same proof, so either package's
-verifier reads the other's blobs. Blobs of the JAX package's tiers that are
-not ported yet (the full-coverage SHA STARK, the Ed25519 STARK) are refused
-at decode time.
+the skip proof at the default, SHA-256 and full-coverage SHA-256 tiers (its
+batched-SHA STARK, sharded at the full tier, and the embedded claim bundle)
+and the step proof, in the JAX package's schema: the bytes of a port proof
+equal the JAX package's for the same proof, so either package's verifier
+reads the other's blobs. Blobs of the JAX package's tier that is not ported
+yet (the Ed25519 STARK) are refused at decode time.
 """
 
 from __future__ import annotations
@@ -150,24 +150,40 @@ def stark_proof_from_bytes(b: bytes) -> stark.StarkProof:
 
 
 def sha_claims_to_dict(p) -> dict:
-    """Serialize a sha_claims.ShaStarkProof."""
-    return {
+    """Serialize a sha_claims.ShaStarkProof or skip_claims.SkipShaProof (the
+    full-coverage variant is SHARDED — a STARK list — and additionally
+    carries its claimed link fields)."""
+    d = {
         "aux": [[list(map(int, w)), list(map(int, o))] for w, o in p.aux],
         "n_rows": int(p.n_rows),
-        "stark": stark_proof_to_dict(p.stark),
     }
+    if hasattr(p, "link_fields"):
+        d["starks"] = [stark_proof_to_dict(s) for s in p.starks]
+        d["max_blocks"] = int(p.max_blocks)
+        d["link_fields"] = [[int(t), psh.hex()] for t, psh in p.link_fields]
+    else:
+        d["stark"] = stark_proof_to_dict(p.stark)
+    return d
 
 
 def sha_claims_from_dict(d: dict):
     from blobstreamx_tpu_torch.prover.sha_claims import ShaStarkProof
 
-    _require("link_fields" not in d,
-             "the full-coverage SHA STARK is not ported yet (ROADMAP queue 1)")
-    return ShaStarkProof(
-        stark=stark_proof_from_dict(d["stark"]),
+    kw = dict(
         aux=[(tuple(w), tuple(o)) for w, o in d["aux"]],
         n_rows=int(d["n_rows"]),
     )
+    if "link_fields" in d:
+        from blobstreamx_tpu_torch.prover.skip_claims import SkipShaProof
+
+        _require(isinstance(d.get("starks"), list), "sharded SHA proof lacks starks")
+        return SkipShaProof(
+            starks=[stark_proof_from_dict(s) for s in d["starks"]],
+            max_blocks=int(d.get("max_blocks", 4096)),
+            link_fields=[(int(t), bytes.fromhex(psh)) for t, psh in d["link_fields"]],
+            **kw,
+        )
+    return ShaStarkProof(stark=stark_proof_from_dict(d["stark"]), **kw)
 
 
 def claim_data_to_dict(c) -> dict:
@@ -273,4 +289,46 @@ def _skip_proof_from_dict(d: dict):
         timing="",
         sha_stark=sha_claims_from_dict(d["sha_stark"]) if "sha_stark" in d else None,
         claims=claim_data_from_dict(d["claims"]) if "claims" in d else None,
+    )
+
+
+def step_proof_to_bytes(p) -> bytes:
+    """Serialize a pipeline.StepProof."""
+    d = {
+        "schema": SCHEMA,
+        "kind": "step",
+        "outputs": {
+            "prev_height": p.outputs.prev_height,
+            "prev_root": p.outputs.prev_root.hex(),
+            "new_height": p.outputs.new_height,
+            "new_root": p.outputs.new_root.hex(),
+        },
+        "publics": [int(x) for x in p.publics],
+        "n_rows": int(p.n_rows),
+        "stark": stark_proof_to_dict(p.stark),
+    }
+    return json.dumps(d, separators=(",", ":")).encode()
+
+
+def step_proof_from_bytes(b: bytes):
+    return _decode(_step_proof_from_dict, b)
+
+
+def _step_proof_from_dict(d: dict):
+    from blobstreamx_tpu_torch.circuits.step import StepPublicOutputs
+    from blobstreamx_tpu_torch.prover import pipeline
+
+    _require(d.get("schema") == SCHEMA and d.get("kind") == "step", "not a step proof blob")
+    out = StepPublicOutputs(
+        prev_height=d["outputs"]["prev_height"],
+        prev_root=bytes.fromhex(d["outputs"]["prev_root"]),
+        new_height=d["outputs"]["new_height"],
+        new_root=bytes.fromhex(d["outputs"]["new_root"]),
+    )
+    return pipeline.StepProof(
+        outputs=out,
+        publics=list(d["publics"]),
+        n_rows=int(d["n_rows"]),
+        stark=stark_proof_from_dict(d["stark"]),
+        timing="",
     )

@@ -19,12 +19,16 @@ result):
      config 4's (12, 2^21) and (12, 2^20) and the NTT at the FRI final
      polynomial's (8, 1), and at the edges of their designs: Poseidon at a
      ragged batch ((12, 16383), (12, 1)), the NTT at a ragged last column
-     tile (2048, 2050), one-column tiles (2^14, 3), n = 1 (1, 4) and both
-     passes of an odd-log four-step ((1024, 2048), (2048, 1024)), the NTT's
+     tile (2048, 2050), one-column tiles (2^14, 3), n = 1 (1, 4), both
+     passes of an odd-log four-step ((1024, 2048), (2048, 1024)) and the
+     256-validator StepAir's trace INTT (256, 4) and LDE (2048, 4), the NTT's
      long-column path (columns longer than 2^14, a launch a pass of
      shared-memory stages) at the SHA tier's shapes (the trace chunk's LDE
      (2^21, 32) and INTT (2^18, 32), the ragged last chunk (2^18, 20), the
-     quotient's coset INTT (2^21, 2) and LDE (2^21, 16)), at (2^16, 8) and
+     quotient's coset INTT (2^21, 2) and LDE (2^21, 16)), at phase 10's
+     512-block shard (its 128-column trace chunks: INTT (2^15, 128), LDE
+     (2^18, 128), and the ragged last chunk (2^15, 20), (2^18, 20)), at
+     (2^16, 8) and
      at the edges of its design (the smallest long column (2^15, 1) and
      (2^15, 3) inverse, a ragged column tile; an uneven split (2^17, 5);
      the largest two-pass column (2^22, 8); three passes (2^23, 4)), each
@@ -40,8 +44,12 @@ result):
      timed at k = 1, 5 and 50, and an empty kernel's launch through the
      ed25519 library timed first as the launch floor, a yardstick);
   4. card vs CPU: the small chain of tests/test_pipeline.py proven on cuda
-     and on cpu gives identical proof bytes (the CPU path is held
-     byte-equal to the JAX package by the CPU tests);
+     and on cpu gives identical proof bytes, for the skip 2 -> 10 and for
+     the step 9 -> 10 (the CPU path is held byte-equal to the JAX package
+     by the CPU tests); and the 3-header, 1-validator chain of
+     tests/test_torch_full_tier.py's slow test, proven on cuda at the
+     full-coverage tier under that test's config, hashes to the SHA-256 of
+     the CPU's proof, which the JAX package's verifier accepts;
   5. config 5 (1024 headers, 32 validators, seed 7, trusted 1 -> target
      1024, default StarkConfig): witness, a cold and a warm prove_skip on
      cuda, the port's verifier (must accept), a tampered publics[0] (must
@@ -82,11 +90,39 @@ result):
      SHA STARK stripped, and one embedded range data hash changed. One JSON
      line {"config5_sha": {...}}; with --profile, one more warm SHA-tier
      prove under torch.profiler.
+  9. prove_step at config 5's shape (phase 5's chain, 1023 -> 1024, 32
+     validators) and at config 3's signature count (a two-header chain of
+     256 validators, all signing, 1 -> 2; the chain's host generation
+     timed): for each, a cold and a warm prove_step on cuda, the TimingTree,
+     the warm prove's launches (ntt, poseidon, edwards_add and pow_chain
+     must each be > 0) and peak device memory, verify_step_proof accepts,
+     and rejects a tampered publics[0] and a new_height off by one. One
+     JSON line {"step": {...}}.
+ 10. config 5 at the full-coverage SHA-256 tier, cut in depth to 192
+     headers (32 validators, seed 7, trusted 1 -> target 192): one
+     prove_skip(w, device="cuda", with_sha_stark="full"), its shards as the
+     prover recorded them (two, of 4096 and 512 padded blocks, asserted;
+     each with the prover path prove_auto took and its time), the
+     TimingTree, the launches (ntt, ntt_multi, poseidon, edwards_add and
+     pow_chain must each be > 0), the peak device memory (under the card's)
+     and what was resident before, the SHA-256 of the proof's bytes, a
+     serializer round trip, the port's verifier (must accept with "ok: full
+     coverage") and five tampers, each rejected with its own verdict: one
+     word of a claimed digest in aux, one link_fields part-set hash and the
+     SHA proof stripped (the claim digest binding), one embedded range data
+     hash (the claim walk), a wrong quotient opening in the first shard's
+     STARK (that shard's STARK check). One JSON line {"config5_full": {...}}.
+ 11. every (n, columns, direction) that the NTT kernels were launched at in
+     phases 4-10 and phase 3 did not check (recorded at the kernel's
+     wrapper while the paths ran), held against the plain version on
+     seeded inputs: mismatches must be 0.
 
-Each path has its own list of kernels that must launch. Before the last
-line come {"config5": ...}, {"config4": ...}, {"config5_sha": ...} and
+Each phase prints its wall time. Each path has its own list of kernels that
+must launch. Before the last line come {"config5": ...}, {"config4": ...},
+{"config5_sha": ...}, {"step": ...}, {"config5_full": ...} and
 {"kernels": [...]}, where each kernel's "launches" is from the warm run of
-its own path ("path") and "launches_by_path" has all three; the last line is
+its own path ("path") and "launches_by_path" has all five (the step path's
+from the 256-validator warm prove); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Bounds: the least time the card could take, the larger of the bytes moved
@@ -102,6 +138,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+from contextlib import contextmanager
 import json
 import subprocess
 import sys
@@ -117,11 +154,25 @@ EDWARDS_ADD_MULS = 9
 
 CONFIG5 = dict(seed=7, n_headers=1024, n_validators=32, trusted=1, target=1024)
 CONFIG4 = dict(seed=0, log_n=22, fold_beta=0x123456789ABCDEF, iters=16)
+# phase 10: config 5's chain generator and validator width, cut in depth to 192 headers
+CONFIG5_FULL = dict(seed=7, n_headers=192, n_validators=32, trusted=1, target=192, shard_blocks=(4096, 512))
+STEP_WIDE = dict(seed=7, n_headers=2, n_validators=256, prev_height=1)  # config 3's 256 signatures
 PATH_KERNELS = {
     "config5": ("ntt", "poseidon", "edwards_add", "pow_chain"),
     "config4": ("ntt", "twiddle_transpose", "poseidon"),
     "config5_sha": ("ntt", "ntt_multi", "poseidon", "edwards_add", "pow_chain"),
+    "step": ("ntt", "poseidon", "edwards_add", "pow_chain"),
+    "config5_full": ("ntt", "ntt_multi", "poseidon", "edwards_add", "pow_chain"),
 }
+# the small chains of phase 4 and tests/test_pipeline.py (seed 11, 12 headers, 4 validators) and of
+# tests/test_torch_full_tier.py's slow test (seed 11, 3 headers, 1 validator), with their configs
+SMALL_CHAIN = dict(seed=11, n_headers=12, n_validators=4, rotate_every=4, sign_fraction=0.75, sign_heights={10})
+SMALL_CFG = dict(rate_bits=2, cap_height=1, num_query_rounds=12, proof_of_work_bits=4, final_poly_len=4)
+TINY_CHAIN = dict(seed=11, n_headers=3, n_validators=1, sign_heights={2})
+TINY_CFG = dict(rate_bits=2, cap_height=1, num_query_rounds=4, proof_of_work_bits=4, final_poly_len=4)
+# SHA-256 of the tiny chain's full-tier proof (trusted 1 -> target 2) under TINY_CFG: the CPU's bytes,
+# which the JAX package's verifier accepts (tests/test_torch_full_tier.py, slow)
+TINY_FULL_PROOF_SHA256 = "bb54aad55410b55b278f68687e54041f092ef87be1a35d9ec14ab5d172dec522"
 CUTOVER_FIT_ROWS = (1 << 12, 1 << 13, 1 << 14)  # Sha256Air traces through stark.prove
 CUTOVER_MEMORY_SHARE = 0.85  # of the card's memory, the most the fit may predict at the cutover
 
@@ -157,7 +208,7 @@ def dev_us(e) -> float:
     return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
 
-def ntt_launches(fn, tries: int = 3) -> tuple[int, float | None]:
+def ntt_launches(fn, tries: int = 5) -> tuple[int, float | None]:
     """The kernels one call of `fn` launches through the NTT library (its
     own count), and their device time in ms under torch.profiler: taken
     again when the profile recorded fewer kernels than were launched, None
@@ -280,19 +331,26 @@ def check_ntt(rng, dev):
         ((2048, 2050), False, "ragged last column tile"),
         ((1 << 14, 3), True, "one-column tiles at the largest shared-memory n"),
         ((1, 4), False, "n = 1"),
+        ((256, 4), True, "StepAir trace INTT (phase 9)"),
+        ((2048, 4), False, "StepAir trace LDE (phase 9)"),
     ])
 
 
 def check_ntt_multi(rng, dev):
     """The long-column path (columns longer than 2^14, a launch a pass of
     shared-memory stages) at the SHA tier's shapes (column chunks of 32 at
-    2^18 rows, rate_bits 3) and at the edges of its design."""
+    2^18 rows, rate_bits 3), at the full tier's 512-block shard (column
+    chunks of 128 at 2^15 rows) and at the edges of its design."""
     return _ntt_cases(rng, dev, [
         ((1 << 21, 32), False, "SHA trace chunk LDE"),
         ((1 << 18, 32), True, "SHA trace chunk INTT"),
         ((1 << 18, 20), True, "SHA last (ragged) trace chunk INTT"),
         ((1 << 21, 2), True, "SHA quotient coset INTT"),
         ((1 << 21, 16), False, "SHA quotient LDE"),
+        ((1 << 15, 128), True, "full tier's 512-block shard: trace chunk INTT"),
+        ((1 << 18, 128), False, "full tier's 512-block shard: trace chunk LDE"),
+        ((1 << 15, 20), True, "full tier's 512-block shard: last (ragged) trace chunk INTT"),
+        ((1 << 18, 20), False, "full tier's 512-block shard: last (ragged) trace chunk LDE"),
         ((1 << 16, 8), False, "long-column path at 2^16"),
         ((1 << 15, 1), False, "smallest long column, one-column tile"),
         ((1 << 15, 3), True, "smallest long column, ragged column tile"),
@@ -330,6 +388,50 @@ def _ntt_cases(rng, dev, cases, long_path=False):
                          bound_by=by))
         del x
     return rows
+
+
+@contextmanager
+def recorded_ntt_shapes(seen: set):
+    """Add the (n, columns, inverse) of every NTT kernel launch made inside
+    the block to `seen`: the shapes the main paths gave the kernel."""
+    from blobstreamx_tpu_torch.ops import ntt
+
+    launch = ntt._ntt_cols_cuda
+
+    def recording(x, inverse):
+        seen.add((*x[0].shape, bool(inverse)))
+        return launch(x, inverse)
+
+    ntt._ntt_cols_cuda = recording
+    try:
+        yield seen
+    finally:
+        ntt._ntt_cols_cuda = launch
+
+
+def check_recorded_ntt(rng, seen: set, rows: dict) -> int:
+    """Phase 11: the NTT kernel against its plain version at every shape in
+    `seen` that phase 3 did not check, on seeded inputs (mismatches must be
+    0). Each result joins the rows of the tile ("ntt") or the long-column
+    ("ntt_multi") kernel. Returns the number of shapes checked."""
+    from blobstreamx_tpu_torch import kernels
+    from blobstreamx_tpu_torch.fields import gf64
+    from blobstreamx_tpu_torch.ops import ntt
+
+    checked = {r["shape"] for name in ("ntt", "ntt_multi") for r in rows[name]}
+    todo = [(n, c, inv) for n, c, inv in sorted(seen)
+            if f"({n}, {c}) {'inverse' if inv else 'forward'}" not in checked]
+    for n, c, inverse in todo:
+        x = gf64.from_u64(gl_values(rng, (n, c)), "cuda")
+        mism, err = gl_mismatch(ntt._ntt_cols_cuda(x, inverse), ntt.ntt_cols_plain(x, inverse))
+        shape = f"({n}, {c}) {'inverse' if inverse else 'forward'}"
+        log(f"  ntt {shape}: mismatches {mism}")
+        assert mism == 0, f"ntt kernel disagrees with the plain version at a main path's shape {shape}"
+        name = "ntt" if n <= kernels.load("ntt").bsx_ntt_smem_max_n() else "ntt_multi"
+        rows[name].append(dict(shape=shape, max_abs_err=err, checked_in="phase 11"))
+        del x
+    log(f"  {len(seen)} shapes launched by the main paths, {len(todo)} of them not in phase 3, all equal")
+    return len(todo)
 
 
 def check_poseidon(rng, dev):
@@ -493,30 +595,60 @@ KERNELS = [
 
 
 def small_chain_card_vs_cpu():
-    from blobstreamx_tpu_torch.circuits import fixtures as fx, witness as wit
+    from blobstreamx_tpu_torch.circuits import fixtures as fx, step, witness as wit
     from blobstreamx_tpu_torch.prover import pipeline
     from blobstreamx_tpu_torch.prover.config import StarkConfig
-    from blobstreamx_tpu_torch.prover.serialize import skip_proof_to_bytes
+    from blobstreamx_tpu_torch.prover.serialize import skip_proof_to_bytes, step_proof_to_bytes
 
-    cfg = StarkConfig(rate_bits=2, cap_height=1, num_query_rounds=12, proof_of_work_bits=4, final_poly_len=4)
-    chain = fx.generate_chain(seed=11, n_headers=12, n_validators=4, rotate_every=4,
-                              sign_fraction=0.75, sign_heights={10})
+    cfg = StarkConfig(**SMALL_CFG)
+    chain = fx.generate_chain(**SMALL_CHAIN)
     w = wit.build_skip_witness(chain, trusted_height=2, target_height=10)
+    ws = step.build_step_witness(chain, prev_height=9)
+    for what, prove, to_bytes in (
+        ("skip 2 -> 10", lambda dev: pipeline.prove_skip(w, cfg, device=dev), skip_proof_to_bytes),
+        ("step 9 -> 10", lambda dev: pipeline.prove_step(ws, cfg, device=dev), step_proof_to_bytes),
+    ):
+        t0 = time.perf_counter()
+        on_card = to_bytes(prove("cuda"))
+        t1 = time.perf_counter()
+        on_cpu = to_bytes(prove("cpu"))
+        t2 = time.perf_counter()
+        same = on_card == on_cpu
+        log(f"  small chain (seed 11, 12 headers, 4 validators), {what}: card {t1 - t0:.3f} s, "
+            f"cpu {t2 - t1:.3f} s, {len(on_card)} proof bytes, card bytes == cpu bytes: {same}")
+        assert same, f"card proof bytes differ from the CPU proof bytes ({what})"
+
+    tiny = wit.build_skip_witness(fx.generate_chain(**TINY_CHAIN), trusted_height=1, target_height=2)
     t0 = time.perf_counter()
-    on_card = skip_proof_to_bytes(pipeline.prove_skip(w, cfg, device="cuda"))
-    t1 = time.perf_counter()
-    on_cpu = skip_proof_to_bytes(pipeline.prove_skip(w, cfg, device="cpu"))
-    t2 = time.perf_counter()
-    same = on_card == on_cpu
-    log(f"  small chain (seed 11, 12 headers, 4 validators, 2 -> 10): card {t1 - t0:.3f} s, "
-        f"cpu {t2 - t1:.3f} s, {len(on_card)} proof bytes, card bytes == cpu bytes: {same}")
-    assert same, "card proof bytes differ from the CPU proof bytes"
+    blob = skip_proof_to_bytes(pipeline.prove_skip(tiny, StarkConfig(**TINY_CFG), device="cuda",
+                                                   with_sha_stark="full"))
+    digest = hashlib.sha256(blob).hexdigest()
+    log(f"  tiny chain (seed 11, 3 headers, 1 validator, 1 -> 2) at the full tier: card "
+        f"{time.perf_counter() - t0:.3f} s, {len(blob)} proof bytes, SHA-256 {digest}")
+    assert digest == TINY_FULL_PROOF_SHA256, "the card's full-tier proof differs from the CPU's (its SHA-256)"
+
+
+def warm_run(prove):
+    """One warm run of a prove on the card: (result, wall s, kernel
+    launches, peak device memory, what was resident before it)."""
+    import torch
+
+    from blobstreamx_tpu_torch import kernels
+
+    kernels.reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = prove()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return out, wall, dict(kernels.launches), torch.cuda.max_memory_allocated(), resident
 
 
 def config5():
     import torch
 
-    from blobstreamx_tpu_torch import kernels
     from blobstreamx_tpu_torch.circuits import fixtures as fx, witness as wit
     from blobstreamx_tpu_torch.prover import pipeline
     from blobstreamx_tpu_torch.prover.serialize import skip_proof_to_bytes
@@ -534,15 +666,7 @@ def config5():
     cold_s = time.perf_counter() - t0
     log(f"  cold prove_skip: {cold_s:.3f} s")
 
-    kernels.reset_counts()
-    torch.cuda.reset_peak_memory_stats()
-    resident = torch.cuda.memory_allocated()
-    t0 = time.perf_counter()
-    warm = pipeline.prove_skip(w, device="cuda")
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
-    launches = dict(kernels.launches)
-    peak = torch.cuda.max_memory_allocated()
+    warm, warm_s, launches, peak, resident = warm_run(lambda: pipeline.prove_skip(w, device="cuda"))
     log(f"  warm prove_skip: {warm_s:.3f} s")
     log("  warm TimingTree:\n" + "\n".join("    " + line for line in warm.timing.splitlines()))
     log(f"  kernel launches in the warm prove: {json.dumps(launches)}")
@@ -560,7 +684,7 @@ def config5():
     tampered = pipeline.verify_skip_proof(dataclasses.replace(warm, publics=pub))
     log(f"  tampered publics[0] accepted: {tampered}")
     assert not tampered, "a tampered proof was accepted"
-    return launches, cold_s, warm_s, w
+    return launches, cold_s, warm_s, w, chain
 
 
 def config4_inputs(seed: int, log_n: int, log_coeffs: int):
@@ -659,9 +783,6 @@ def config4(smi: str, profile: bool = False):
     """Config 4 on the card: cold and warm runs of the path, launches and
     peak memory of the warm one, the checks, then CUDA-event times; with
     `profile`, one more warm run under torch.profiler."""
-    import torch
-
-    from blobstreamx_tpu_torch import kernels
     from blobstreamx_tpu_torch.golden import goldilocks as gold
     from blobstreamx_tpu_torch.golden.fri import FriConfig
     from blobstreamx_tpu_torch.ops import fri, ntt
@@ -680,14 +801,8 @@ def config4(smi: str, profile: bool = False):
     cold_s = time.perf_counter() - t0
     log(f"  cold path (host tables built here): {cold_s:.3f} s, of which fri_prove {cold[4]:.3f} s")
 
-    kernels.reset_counts()
-    torch.cuda.reset_peak_memory_stats()
-    resident = torch.cuda.memory_allocated()
-    t0 = time.perf_counter()
-    y, back, cw, proof, fri_s = config4_path(x, coeffs, cfg, shift)
-    warm_s = time.perf_counter() - t0
-    launches = dict(kernels.launches)
-    peak = torch.cuda.max_memory_allocated()
+    (y, back, cw, proof, fri_s), warm_s, launches, peak, resident = warm_run(
+        lambda: config4_path(x, coeffs, cfg, shift))
     log(f"  warm path: {warm_s:.3f} s, of which fri_prove {fri_s:.3f} s")
     log(f"  kernel launches in the warm path: {json.dumps(launches)}")
     log(f"  peak device memory in the warm path: {peak} bytes ({resident} resident before it)")
@@ -792,12 +907,43 @@ def sha_tamper(proof, how: str):
     return dataclasses.replace(proof, claims=dataclasses.replace(proof.claims, range_data_hashes=hashes))
 
 
+# phase 10's tampers of a full-coverage proof and the verifier's verdict on each: the first three
+# change what the claim digest binds, the last two leave the binding intact, so only the claim walk
+# (a range data hash off the header chain) or the first shard's own STARK check can reject them
+FULL_TAMPERS = {
+    "digest_word": "failed: claim digest not bound in transcript",
+    "link_field": "failed: claim digest not bound in transcript",
+    "strip_sha_stark": "failed: claim digest not bound in transcript",
+    "range_data_hash": "failed: full claim walk rejected",
+    "shard_stark": "failed: full claim walk rejected",
+}
+GOLDILOCKS_P = 0xFFFFFFFF00000001
+
+
+def full_tamper(proof, how: str):
+    """One of phase 10's tampers of a full-coverage proof (FULL_TAMPERS):
+    one word of a claimed digest in aux changed, one link_fields part-set
+    hash changed, the SHA proof stripped, one embedded range data hash
+    changed, or the first shard's STARK opening a wrong quotient value at
+    zeta."""
+    sha = proof.sha_stark
+    if how == "link_field":
+        (total, psh), *rest = sha.link_fields
+        link_fields = [(total, bytes([psh[0] ^ 1]) + psh[1:])] + rest
+        return dataclasses.replace(proof, sha_stark=dataclasses.replace(sha, link_fields=link_fields))
+    if how == "shard_stark":
+        first, *rest = sha.starks
+        (a, b), *qz = first.quotient_zeta
+        bad = dataclasses.replace(first, quotient_zeta=[((a + 1) % GOLDILOCKS_P, b)] + qz)
+        return dataclasses.replace(proof, sha_stark=dataclasses.replace(sha, starks=[bad] + rest))
+    return sha_tamper(proof, how)
+
+
 def config5_sha(w, smi: str, profile: bool):
     """Config 5 at the SHA-256 tier on the card (phase 8)."""
     import numpy as np
     import torch
 
-    from blobstreamx_tpu_torch import kernels
     from blobstreamx_tpu_torch.prover import pipeline, sha_air, sha_claims, stark_stream
     from blobstreamx_tpu_torch.prover.config import StarkConfig
     from blobstreamx_tpu_torch.prover.serialize import skip_proof_to_bytes
@@ -813,15 +959,7 @@ def config5_sha(w, smi: str, profile: bool):
     cold_s = time.perf_counter() - t0
     log(f"  cold prove_skip(with_sha_stark=True): {cold_s:.3f} s")
 
-    kernels.reset_counts()
-    torch.cuda.reset_peak_memory_stats()
-    resident = torch.cuda.memory_allocated()
-    t0 = time.perf_counter()
-    warm = prove()
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
-    launches = dict(kernels.launches)
-    peak = torch.cuda.max_memory_allocated()
+    warm, warm_s, launches, peak, resident = warm_run(prove)
     total = torch.cuda.get_device_properties(0).total_memory
     sha = warm.sha_stark
     air = sha_air.Sha256Air(sha_claims._expected_chain(len(w.range_heights)))
@@ -865,6 +1003,139 @@ def config5_sha(w, smi: str, profile: bool):
 
         proof = profile_warm("SHA-tier warm prove", prove, spans=[(ntt, "coset_scale")])
         log("  TimingTree:\n" + "\n".join("    " + line for line in proof.timing.splitlines()))
+    return launches
+
+
+def step_case(name: str, chain, prev_height: int) -> dict:
+    """Phase 9 on one step witness: a cold and a warm prove_step on the
+    card, the verifier (must accept), a tampered publics[0] and a new_height
+    off by one (each must be rejected), the TimingTree, the warm prove's
+    launches (each of PATH_KERNELS["step"] > 0) and peak device memory."""
+    import torch
+
+    from blobstreamx_tpu_torch.circuits import step
+    from blobstreamx_tpu_torch.prover import pipeline
+    from blobstreamx_tpu_torch.prover.serialize import step_proof_to_bytes
+
+    w = step.build_step_witness(chain, prev_height=prev_height)
+    t0 = time.perf_counter()
+    cold = pipeline.prove_step(w, device="cuda")
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    warm, warm_s, launches, peak, resident = warm_run(lambda: pipeline.prove_step(w, device="cuda"))
+    signers = int(w.signed.sum())
+    log(f"  {name}: {len(w.new_set.pubkeys)} validators, {signers} signatures, step {prev_height} -> "
+        f"{prev_height + 1}: cold {cold_s:.3f} s, warm {warm_s:.3f} s")
+    log("  warm TimingTree:\n" + "\n".join("    " + line for line in warm.timing.splitlines()))
+    log(f"  kernel launches in the warm prove: {json.dumps(launches)}")
+    log(f"  peak device memory in the warm prove: {peak} bytes ({resident} resident before it)")
+    missing = [k for k in PATH_KERNELS["step"] if launches[k] == 0]
+    assert not missing, f"kernels of the step path were not launched: {missing} ({launches})"
+    assert step_proof_to_bytes(warm) == step_proof_to_bytes(cold), "warm and cold step proofs differ"
+    t0 = time.perf_counter()
+    ok = pipeline.verify_step_proof(warm)
+    verify_s = time.perf_counter() - t0
+    pub = list(warm.publics)
+    pub[0] -= 1  # still above 2/3 of the total: only the STARK can catch it
+    tampered_signed = pipeline.verify_step_proof(dataclasses.replace(warm, publics=pub))
+    pub = list(warm.publics)
+    pub[19] += 1
+    off = dataclasses.replace(warm.outputs, new_height=warm.outputs.new_height + 1)
+    tampered_height = pipeline.verify_step_proof(dataclasses.replace(warm, publics=pub, outputs=off))
+    log(f"  verify_step_proof: {ok} ({verify_s:.3f} s); tampered publics[0] accepted: {tampered_signed}; "
+        f"new_height off by one accepted: {tampered_height}")
+    assert ok, f"the port's verifier rejected the step proof ({name})"
+    assert not tampered_signed and not tampered_height, f"a tampered step proof was accepted ({name})"
+    return dict(validators=len(w.new_set.pubkeys), signatures=signers, prev_height=prev_height, cold_s=cold_s,
+                warm_s=warm_s, verify_s=verify_s, launches=launches, peak_device_bytes=peak,
+                resident_before_bytes=resident, timing=warm.timing.splitlines())
+
+
+def step_phase(chain5, smi: str):
+    """Phase 9: prove_step at config 5's shape (phase 5's chain, 1023 ->
+    1024, 32 validators) and at config 3's signature count (a two-header
+    chain of 256 validators, all signing, 1 -> 2). Returns the wide case's
+    warm launches."""
+    from blobstreamx_tpu_torch.circuits import fixtures as fx
+
+    rec = {"config5_shape": step_case("config 5's chain", chain5, CONFIG5["target"] - 1)}
+    c = STEP_WIDE
+    t0 = time.perf_counter()
+    chain = fx.generate_chain(seed=c["seed"], n_headers=c["n_headers"], n_validators=c["n_validators"],
+                              sign_heights={c["prev_height"] + 1})
+    chain_s = time.perf_counter() - t0
+    log(f"  {c['n_validators']}-validator chain (host, golden Ed25519 keys and signatures): {chain_s:.3f} s")
+    rec["wide"] = dict(step_case(f"{c['n_validators']}-validator chain", chain, c["prev_height"]),
+                       chain_s=chain_s)
+    log(json.dumps({"step": dict(rec, card=smi)}))
+    return rec["wide"]["launches"]
+
+
+def config5_full(smi: str):
+    """Phase 10: config 5 at the full-coverage SHA-256 tier, cut in depth to
+    192 headers (CONFIG5_FULL): one prove_skip(w, device="cuda",
+    with_sha_stark="full"), its shards as the prover ran them (the proof's
+    shard_log: blocks, prover path, time; the padded blocks must be
+    CONFIG5_FULL's), the TimingTree, the launches (each of
+    PATH_KERNELS["config5_full"] > 0), the peak device memory (under the
+    card's) and what was resident before, the proof's SHA-256, a serializer
+    round trip, the verifier (must accept with "ok: full coverage") and the
+    FULL_TAMPERS (each must be rejected with its verdict)."""
+    import torch
+
+    from blobstreamx_tpu_torch.circuits import fixtures as fx, witness as wit
+    from blobstreamx_tpu_torch.prover import pipeline
+    from blobstreamx_tpu_torch.prover.serialize import skip_proof_from_bytes, skip_proof_to_bytes
+
+    c = CONFIG5_FULL
+    t0 = time.perf_counter()
+    chain = fx.generate_chain(seed=c["seed"], n_headers=c["n_headers"], n_validators=c["n_validators"],
+                              sign_heights={c["target"]})
+    w = wit.build_skip_witness(chain, trusted_height=c["trusted"], target_height=c["target"])
+    log(f"  witness (host): {time.perf_counter() - t0:.3f} s")
+
+    proof, wall, launches, peak, resident = warm_run(
+        lambda: pipeline.prove_skip(w, device="cuda", with_sha_stark="full"))
+    total = torch.cuda.get_device_properties(0).total_memory
+    shards = proof.sha_stark.shard_log
+    log(f"  prove_skip(with_sha_stark=\"full\"): {wall:.3f} s; {sum(sh['messages'] for sh in shards)} "
+        f"messages, {sum(sh['blocks'] for sh in shards)} blocks")
+    for k, sh in enumerate(shards):
+        log(f"  shard {k}: {json.dumps(sh)}")
+    log("  TimingTree:\n" + "\n".join("    " + line for line in proof.timing.splitlines()))
+    log(f"  kernel launches: {json.dumps(launches)}")
+    log(f"  peak device memory: {peak} bytes ({resident} resident before it; the card has {total})")
+    missing = [k for k in PATH_KERNELS["config5_full"] if launches[k] == 0]
+    assert not missing, f"kernels of the full-tier path were not launched: {missing} ({launches})"
+    assert peak < total, "peak device memory above the card's"
+    padded = [sh["padded_blocks"] for sh in shards]
+    assert padded == list(c["shard_blocks"]), f"shards of {padded} blocks, not {c['shard_blocks']}"
+    assert len(proof.sha_stark.starks) == len(shards), "a STARK a shard"
+    blob = skip_proof_to_bytes(proof)
+    digest = hashlib.sha256(blob).hexdigest()
+    round_trip = skip_proof_to_bytes(skip_proof_from_bytes(blob)) == blob
+    log(f"  proof: {len(blob)} bytes, SHA-256 {digest}, serializer round trip equal: {round_trip}")
+    assert round_trip, "the full-tier proof does not survive a serializer round trip"
+
+    t0 = time.perf_counter()
+    ok, detail = pipeline.verify_skip_proof_detailed(proof)
+    verify_s = time.perf_counter() - t0
+    log(f"  verify_skip_proof_detailed: {ok} {json.dumps(detail)} ({verify_s:.3f} s)")
+    assert ok and detail["sha_stark"] == "ok: full coverage", "the port's verifier rejected the full-tier proof"
+    tampers = {}
+    for how, verdict in FULL_TAMPERS.items():
+        t0 = time.perf_counter()
+        ok_t, detail_t = pipeline.verify_skip_proof_detailed(full_tamper(proof, how))
+        tampers[how] = detail_t.get("sha_stark")
+        log(f"  tamper {how}: accepted {ok_t}, {detail_t.get('sha_stark')} ({time.perf_counter() - t0:.3f} s)")
+        assert not ok_t, f"a full-tier proof with tamper {how} was accepted"
+        assert tampers[how] == verdict, f"tamper {how} was rejected by another check than expected: {detail_t}"
+    rec = dict(headers=c["n_headers"], validators=c["n_validators"], messages=sum(sh["messages"] for sh in shards),
+               shards=shards,
+               prove_s=wall, verify_s=verify_s, launches=launches, peak_device_bytes=peak,
+               resident_before_bytes=resident, card_memory_bytes=total, proof_bytes=len(blob), proof_sha256=digest,
+               tampers_rejected=tampers, timing=proof.timing.splitlines(), card=smi)
+    log(json.dumps({"config5_full": rec}))
     return launches
 
 
@@ -927,6 +1198,15 @@ def profile_warm(what: str, run, spans=()):
     return result
 
 
+@contextmanager
+def phase(title: str):
+    """Print a phase's title, run it, then print its wall time."""
+    log(title)
+    t0 = time.perf_counter()
+    yield
+    log(f"  phase wall: {time.perf_counter() - t0:.3f} s")
+
+
 def main() -> int:
     import torch
 
@@ -955,32 +1235,43 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  {src}.cu: {line.strip()}")
 
-    log("[3] kernel checks (kernel vs plain PyTorch on the card, exact)")
-    floor_ms = launch_floor_ms()
-    log(f"  launch floor (one empty kernel through the ed25519 library): {floor_ms:.4f} ms")
-    rng = np.random.default_rng(2024)
-    rows = {}
-    for k in KERNELS:
-        rows[k["name"]] = k["check"](rng, "cuda")
+    with phase("[3] kernel checks (kernel vs plain PyTorch on the card, exact)"):
+        floor_ms = launch_floor_ms()
+        log(f"  launch floor (one empty kernel through the ed25519 library): {floor_ms:.4f} ms")
+        rng = np.random.default_rng(2024)
+        rows = {}
+        for k in KERNELS:
+            rows[k["name"]] = k["check"](rng, "cuda")
 
-    log("[4] card vs CPU on the small chain")
-    small_chain_card_vs_cpu()
+    seen = set()
+    with recorded_ntt_shapes(seen):
+        with phase("[4] card vs CPU on the small chains"):
+            small_chain_card_vs_cpu()
 
-    log("[5] config 5 on the card")
-    launches5, cold_s, warm_s, w = config5()
-    log(json.dumps({"config5": {"cold_s": cold_s, "warm_s": warm_s, "launches": launches5, "card": smi}}))
-    if "--profile" in sys.argv[1:]:
-        from blobstreamx_tpu_torch.prover import pipeline
+        with phase("[5] config 5 on the card"):
+            launches5, cold_s, warm_s, w, chain5 = config5()
+            log(json.dumps({"config5": {"cold_s": cold_s, "warm_s": warm_s, "launches": launches5, "card": smi}}))
+        if "--profile" in sys.argv[1:]:
+            from blobstreamx_tpu_torch.prover import pipeline
 
-        log("[6] profiled warm prove")
-        proof = profile_warm("warm prove", lambda: pipeline.prove_skip(w, device="cuda"))
-        log("  TimingTree:\n" + "\n".join("    " + line for line in proof.timing.splitlines()))
+            with phase("[6] profiled warm prove"):
+                proof = profile_warm("warm prove", lambda: pipeline.prove_skip(w, device="cuda"))
+                log("  TimingTree:\n" + "\n".join("    " + line for line in proof.timing.splitlines()))
 
-    log("[7] config 4 on the card")
-    by_path = {"config5": launches5, "config4": config4(smi, profile="--profile" in sys.argv[1:])}
+        with phase("[7] config 4 on the card"):
+            by_path = {"config5": launches5, "config4": config4(smi, profile="--profile" in sys.argv[1:])}
 
-    log("[8] config 5 at the SHA-256 tier on the card")
-    by_path["config5_sha"] = config5_sha(w, smi, profile="--profile" in sys.argv[1:])
+        with phase("[8] config 5 at the SHA-256 tier on the card"):
+            by_path["config5_sha"] = config5_sha(w, smi, profile="--profile" in sys.argv[1:])
+
+        with phase("[9] prove_step on the card"):
+            by_path["step"] = step_phase(chain5, smi)
+
+        with phase("[10] config 5 at the full-coverage SHA-256 tier, 192 headers, on the card"):
+            by_path["config5_full"] = config5_full(smi)
+
+    with phase("[11] the NTT kernels at every shape the main paths launched (vs plain PyTorch, exact)"):
+        check_recorded_ntt(np.random.default_rng(11), seen, rows)
 
     out = []
     for k in KERNELS:

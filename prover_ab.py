@@ -5,6 +5,7 @@ of two trees in one call.
     python3 prover_ab.py default [--tree DIR] [--warm N]
     python3 prover_ab.py sha_provers [--tree DIR] [--warm N]
     python3 prover_ab.py sha_tier [--tree DIR] [--warm N] [--expect-sha256 HEX]
+    python3 prover_ab.py full_tier [--tree DIR] [--warm N] [--expect-sha256 HEX]
     python3 prover_ab.py config4 [--tree DIR] [--warm N]
 
 --tree imports blobstreamx_tpu_torch (and builds its kernels) from DIR,
@@ -25,6 +26,15 @@ sha_tier:    config 5 at the SHA-256 tier (chip_smoke.py phase 8's
              N warm proves, walls and peak memory, and the SHA-256 of the
              proof bytes (warm == cold); with --expect-sha256, the digest
              must equal the given one (another tree's, from the same call).
+full_tier:   config 5 at the full-coverage SHA-256 tier at its full depth,
+             1024 headers (chip_smoke.py phase 10 cuts it to 192):
+             prove_skip(w, device="cuda", with_sha_stark="full"), six
+             4096-block shards; one cold and N warm proves, each with its
+             wall, peak memory and each shard as the prover ran it (the
+             proof's shard_log: blocks, prove time from its TimingTree
+             scope, the path prove_auto took); the verify wall of the last proof
+             (must accept with "ok: full coverage"); the SHA-256 of the
+             proof bytes (warm == cold; --expect-sha256 as for sha_tier).
 config4:     config 4 (chip_smoke.py phase 7's path: the 2^22 four-step
              forward and inverse, a low-degree codeword and its FRI proof):
              one cold and N warm runs, walls and peak memory.
@@ -126,6 +136,36 @@ def sha_tier(warm: int, expect: str | None) -> list[dict]:
     return rows
 
 
+def full_tier(warm: int, expect: str | None) -> list[dict]:
+    import hashlib
+
+    from blobstreamx_tpu_torch.circuits import fixtures as fx, witness as wit
+    from blobstreamx_tpu_torch.prover import pipeline
+    from blobstreamx_tpu_torch.prover.serialize import skip_proof_to_bytes
+
+    chain = fx.generate_chain(seed=7, n_headers=1024, n_validators=32, sign_heights={1024})
+    w = wit.build_skip_witness(chain, trusted_height=1, target_height=1024)
+    rows, digests = [], set()
+    for i in range(warm + 1):
+        proof, rec = timed(lambda: pipeline.prove_skip(w, device="cuda", with_sha_stark="full"))
+        digests.add(hashlib.sha256(skip_proof_to_bytes(proof)).hexdigest())
+        rows.append(dict(run="cold" if i == 0 else f"warm{i - 1}", shards=proof.sha_stark.shard_log, **rec))
+        print(json.dumps(rows[-1]), flush=True)
+        print(proof.timing, flush=True)
+        if i < warm:
+            del proof
+    t0 = time.perf_counter()
+    ok, detail = pipeline.verify_skip_proof_detailed(proof)
+    rows.append(dict(verify_s=time.perf_counter() - t0, verified=ok, detail=detail))
+    print(json.dumps(rows[-1]), flush=True)
+    assert ok and detail["sha_stark"] == "ok: full coverage", f"the verifier rejected the full-tier proof: {detail}"
+    assert len(digests) == 1, "the full-tier proofs of one process differ"
+    digest = digests.pop()
+    rows.append(dict(proof_sha256=digest))
+    assert expect is None or digest == expect, f"proof SHA-256 {digest} differs from the expected {expect}"
+    return rows
+
+
 def config4(warm: int) -> list[dict]:
     from blobstreamx_tpu_torch.golden import goldilocks as gold
     from blobstreamx_tpu_torch.golden.fri import FriConfig
@@ -144,10 +184,11 @@ def config4(warm: int) -> list[dict]:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("what", choices=("default", "sha_provers", "sha_tier", "config4"))
+    ap.add_argument("what", choices=("default", "sha_provers", "sha_tier", "full_tier", "config4"))
     ap.add_argument("--tree", default=os.path.dirname(os.path.abspath(__file__)))
     ap.add_argument("--warm", type=int, default=3)
-    ap.add_argument("--expect-sha256", default=None, help="sha_tier: the digest the proof bytes must have")
+    ap.add_argument("--expect-sha256", default=None,
+                    help="sha_tier, full_tier: the digest the proof bytes must have")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.tree))
     import torch
@@ -163,6 +204,7 @@ def main() -> int:
     kernels.build()
     rows = {"default": lambda: default_tier(args.warm), "sha_provers": lambda: sha_provers(args.warm),
             "sha_tier": lambda: sha_tier(args.warm, args.expect_sha256),
+            "full_tier": lambda: full_tier(args.warm, args.expect_sha256),
             "config4": lambda: config4(args.warm)}[args.what]()
     print(json.dumps({args.what: rows, "tree": os.path.dirname(os.path.dirname(blobstreamx_tpu_torch.__file__)),
                       "card": smi}))

@@ -49,8 +49,10 @@ def test_prove_skip_without_device_raises_when_no_cuda(small_witness):
 
 
 def test_other_entry_points_raise_when_no_cuda(small_witness):
+    from blobstreamx_tpu_torch.circuits import step
     from blobstreamx_tpu_torch.circuits.skip import verify_skip
     from blobstreamx_tpu_torch.ops import ed25519 as ted
+    from blobstreamx_tpu_torch.prover import pipeline
 
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is usable here")
@@ -60,6 +62,13 @@ def test_other_entry_points_raise_when_no_cuda(small_witness):
         ted.batch_verify(items)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         verify_skip(small_witness)
+    chain = fx.generate_chain(seed=11, n_headers=12, n_validators=4, rotate_every=4,
+                              sign_fraction=0.75, sign_heights={10})
+    step_witness = step.build_step_witness(chain, prev_height=9)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        step.verify_step(step_witness)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        pipeline.prove_step(step_witness)
 
 
 def test_grind_without_device_raises_when_no_cuda():

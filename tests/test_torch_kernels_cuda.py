@@ -41,6 +41,10 @@ def fe(rng, n):
     # long column, a ragged column tile, an uneven split, the largest two-pass and a three-pass column
     (1 << 21, 32, False), (1 << 18, 20, True), (1 << 21, 2, True),
     (1 << 15, 1, False), (1 << 15, 3, True), (1 << 17, 5, False), (1 << 22, 8, False), (1 << 23, 4, False),
+    # the 256-validator StepAir's trace INTT and LDE, and the full tier's 512-block shard: its
+    # 128-column trace chunks and ragged last chunk, inverse at 2^15 rows and forward at 2^18
+    (256, 4, True), (2048, 4, False),
+    (1 << 15, 128, True), (1 << 18, 128, False), (1 << 15, 20, True), (1 << 18, 20, False),
 ])
 def test_ntt_kernel(n, c, inverse):
     from blobstreamx_tpu_torch.ops import ntt
@@ -151,3 +155,26 @@ def test_streaming_prover_on_the_card_equals_the_cpu():
     on_card = stark_stream.prove_streaming(air, trace, [], cfg, aux=aux, col_chunk=512, device="cuda")
     on_cpu = stark.prove(air, trace, [], cfg, aux=aux, device="cpu")
     assert serialize.stark_proof_to_bytes(on_card) == serialize.stark_proof_to_bytes(on_cpu)
+
+
+def test_step_on_the_card_equals_the_cpu():
+    """prove_step on the card (the tile NTT, Poseidon, the Edwards add and
+    the power chain) gives the CPU's proof bytes on tests/test_pipeline.py's
+    chain, step 9 -> 10."""
+    from blobstreamx_tpu_torch import kernels
+    from blobstreamx_tpu_torch.circuits import fixtures as fx, step
+    from blobstreamx_tpu_torch.prover import pipeline
+    from blobstreamx_tpu_torch.prover.config import StarkConfig
+    from blobstreamx_tpu_torch.prover.serialize import step_proof_to_bytes
+
+    _card()
+    cfg = StarkConfig(rate_bits=2, cap_height=1, num_query_rounds=12, proof_of_work_bits=4, final_poly_len=4)
+    chain = fx.generate_chain(seed=11, n_headers=12, n_validators=4, rotate_every=4, sign_fraction=0.75,
+                              sign_heights={10})
+    w = step.build_step_witness(chain, prev_height=9)
+    kernels.reset_counts()
+    on_card = pipeline.prove_step(w, cfg, device="cuda")
+    assert all(kernels.launches[k] > 0 for k in ("ntt", "poseidon", "edwards_add", "pow_chain")), kernels.launches
+    on_cpu = pipeline.prove_step(w, cfg, device="cpu")
+    assert step_proof_to_bytes(on_card) == step_proof_to_bytes(on_cpu)
+    assert pipeline.verify_step_proof(on_card, cfg)

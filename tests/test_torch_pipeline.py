@@ -1,34 +1,46 @@
-"""The port's default-tier prove_skip on the CPU vs the JAX package, on the
-chain and config of tests/test_pipeline.py: identical proof bytes, and each
-package's verifier accepts the other's proof and rejects tampered publics.
+"""The port's default-tier prove_skip and its prove_step on the CPU vs the
+JAX package, on the chain and config of tests/test_pipeline.py (the skip
+2 -> 10 and the step 9 -> 10): identical proof bytes, and each package's
+verifier accepts the other's proof and rejects tampered publics.
 
-All JAX work (prove_skip, the cross-verification and a signature batch with
-a flipped byte) runs in ONE 1-device subprocess (tests/subproc.py), which
-shares test_pipeline's compiled programs; the port runs in-process."""
+All JAX work (prove_skip, prove_step, the cross-verification, verify_step on
+the step witness and on one with a flipped signature byte, and a signature
+batch with a flipped byte) runs in ONE 1-device subprocess
+(tests/subproc.py), which shares test_pipeline's compiled programs; the port
+runs in-process."""
 
 import dataclasses
 import json
+import pickle
 
 import pytest
 import torch
 
-from blobstreamx_tpu_torch.circuits import fixtures as fx, witness as wit
+from blobstreamx_tpu_torch.circuits import fixtures as fx, step, witness as wit
 from blobstreamx_tpu_torch.circuits.skip import verify_skip
 from blobstreamx_tpu_torch.ops import ed25519 as ted
 from blobstreamx_tpu_torch.prover import pipeline
 from blobstreamx_tpu_torch.prover.config import StarkConfig
-from blobstreamx_tpu_torch.prover.serialize import skip_proof_from_bytes, skip_proof_to_bytes
+from blobstreamx_tpu_torch.prover.serialize import (
+    skip_proof_from_bytes,
+    skip_proof_to_bytes,
+    step_proof_from_bytes,
+    step_proof_to_bytes,
+)
 
 torch.set_num_threads(1)
 CFG = StarkConfig(rate_bits=2, cap_height=1, num_query_rounds=12, proof_of_work_bits=4, final_poly_len=4)
 
+STEP_FROM = 9  # the step 9 -> 10 of tests/test_pipeline.py
+
 JAX_SIDE = """
-import dataclasses, json
-from blobstreamx_tpu.circuits import fixtures as fx, witness as wit
+import dataclasses, json, pickle
+from blobstreamx_tpu.circuits import fixtures as fx, step as jstep, witness as wit
 from blobstreamx_tpu.ops import ed25519 as jed
 from blobstreamx_tpu.prover import pipeline
 from blobstreamx_tpu.prover.config import StarkConfig
-from blobstreamx_tpu.prover.serialize import skip_proof_from_bytes, skip_proof_to_bytes
+from blobstreamx_tpu.prover.serialize import (skip_proof_from_bytes, skip_proof_to_bytes,
+                                             step_proof_from_bytes, step_proof_to_bytes)
 
 OUT = {out!r}
 CFG = StarkConfig(rate_bits=2, cap_height=1, num_query_rounds=12,
@@ -50,6 +62,20 @@ res = {{
     "jax_batch_valid": jed.batch_verify(items, streams=4)[0],
     "jax_batch_flipped": jed.batch_verify(flipped, streams=4)[0],
 }}
+
+ws = jstep.build_step_witness(chain, prev_height={step_from})
+pickle.dump(dataclasses.asdict(ws), open(OUT + "/jax_step_witness.pkl", "wb"))
+open(OUT + "/jax_step.bin", "wb").write(step_proof_to_bytes(pipeline.prove_step(ws, CFG)))
+port_step = step_proof_from_bytes(open(OUT + "/port_step.bin", "rb").read())
+pub = list(port_step.publics); pub[0] = pub[1] * 2 // 3
+checks = {{"valid": jstep.verify_step(ws), "flipped_signature": jstep.verify_step(
+    dataclasses.replace(ws, signatures=[ws.signatures[0][:7] + bytes([ws.signatures[0][7] ^ 1])
+                                        + ws.signatures[0][8:]] + ws.signatures[1:]))}}
+res.update(
+    jax_accepts_port_step=pipeline.verify_step_proof(port_step, CFG),
+    jax_accepts_tampered_port_step=pipeline.verify_step_proof(dataclasses.replace(port_step, publics=pub), CFG),
+    jax_verify_step={{k: [bool(r.ok), list(r.reasons)] for k, r in checks.items()}},
+)
 json.dump(res, open(OUT + "/jax.json", "w"))
 """
 
@@ -65,13 +91,23 @@ def runs(tmp_path_factory):
     w = wit.build_skip_witness(chain, trusted_height=2, target_height=10)
     proof = pipeline.prove_skip(w, CFG, device="cpu")
     (out / "port.bin").write_bytes(skip_proof_to_bytes(proof))
-    run_py(JAX_SIDE.format(out=str(out)))
+    ws = step.build_step_witness(chain, prev_height=STEP_FROM)
+    step_proof = pipeline.prove_step(ws, CFG, device="cpu")
+    (out / "port_step.bin").write_bytes(step_proof_to_bytes(step_proof))
+    run_py(JAX_SIDE.format(out=str(out), step_from=STEP_FROM))
+    # the pickle was written by this test's own subprocess above
+    carried = wit.step_witness_from_reference(pickle.loads((out / "jax_step_witness.pkl").read_bytes()))
     return dict(
         witness=w,
         port=proof,
         port_bytes=(out / "port.bin").read_bytes(),
         jax_bytes=(out / "jax.bin").read_bytes(),
         jax=json.loads((out / "jax.json").read_text()),
+        step_witness=ws,
+        step_carried=carried,
+        port_step=step_proof,
+        port_step_bytes=(out / "port_step.bin").read_bytes(),
+        jax_step_bytes=(out / "jax_step.bin").read_bytes(),
     )
 
 
@@ -145,3 +181,49 @@ def test_consensus_matches_jax(runs):
     flipped = [(pk, msg, sig[:7] + bytes([sig[7] ^ 1]) + sig[8:])] + items[1:]
     assert ted.batch_verify(items, device="cpu")[0] == runs["jax"]["jax_batch_valid"] is True
     assert ted.batch_verify(flipped, device="cpu")[0] == runs["jax"]["jax_batch_flipped"] is False
+
+
+def test_port_step_proof_bytes_equal_jax(runs):
+    """The step 9 -> 10: the port's bytes from the witness rebuilt from the
+    seed and from the JAX package's witness carried across both equal the
+    JAX package's prove_step bytes."""
+    got, want = json.loads(runs["port_step_bytes"]), json.loads(runs["jax_step_bytes"])
+    assert got["stark"]["trace_cap"] == want["stark"]["trace_cap"]
+    assert got["stark"]["quotient_cap"] == want["stark"]["quotient_cap"]
+    assert runs["port_step_bytes"] == runs["jax_step_bytes"]
+    carried = pipeline.prove_step(runs["step_carried"], CFG, device="cpu")
+    assert step_proof_to_bytes(carried) == runs["jax_step_bytes"]
+    assert step_proof_to_bytes(step_proof_from_bytes(runs["jax_step_bytes"])) == runs["jax_step_bytes"]
+
+
+def test_step_cross_verification(runs):
+    assert runs["jax"]["jax_accepts_port_step"]
+    assert not runs["jax"]["jax_accepts_tampered_port_step"]
+    jax_step = step_proof_from_bytes(runs["jax_step_bytes"])
+    assert jax_step.outputs.new_height == STEP_FROM + 1
+    assert pipeline.verify_step_proof(jax_step, CFG)
+    for tamper in ("signed_power", "two_thirds", "new_height"):
+        pub, out = list(jax_step.publics), jax_step.outputs
+        if tamper == "signed_power":
+            pub[0] = pub[1]
+        elif tamper == "two_thirds":
+            pub[0] = pub[1] * 2 // 3
+        else:
+            pub[19] += 1
+            out = dataclasses.replace(out, new_height=out.new_height + 1)
+        for proof in (jax_step, runs["port_step"]):
+            assert not pipeline.verify_step_proof(dataclasses.replace(proof, publics=pub, outputs=out), CFG), tamper
+
+
+def test_verify_step_matches_jax(runs):
+    """verify_step's verdict and reasons equal the JAX package's, on the
+    step witness and on one with a flipped signature byte."""
+    ws = runs["step_witness"]
+    sig = ws.signatures[0]
+    flipped = dataclasses.replace(ws, signatures=[sig[:7] + bytes([sig[7] ^ 1]) + sig[8:]] + ws.signatures[1:])
+    got = {}
+    for name, w in (("valid", ws), ("flipped_signature", flipped)):
+        r = step.verify_step(w, device="cpu")
+        got[name] = [r.ok, r.reasons]
+    assert got == runs["jax"]["jax_verify_step"]
+    assert got["valid"] == [True, []] and got["flipped_signature"][0] is False
