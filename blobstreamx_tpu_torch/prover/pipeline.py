@@ -1,5 +1,6 @@
 """The skip and step prover pipelines: the skip proof at the default, the
-SHA-256 and the full-coverage SHA-256 tiers, and the step proof.
+SHA-256 and the full-coverage SHA-256 tiers, each with or without the
+Ed25519 STARK, and the step proof.
 
 Pipeline for one skip proof:
 
@@ -10,6 +11,8 @@ Pipeline for one skip proof:
   sha_stark device (with_sha_stark=True or "full"): the batched SHA-256
             STARK over every hash of the data-commitment tuple tree, or
             over every hash of the skip relation, one STARK a block shard
+  ed_stark  device (with_ed_stark=True): the Ed25519 scalar-mul STARK over
+            every scalar multiplication of the signature batch equation
   stark     device: DEEP-ALI prove over SkipAir
 
 A step proof (header h -> h+1, prove_step) runs the step relation's
@@ -31,12 +34,14 @@ Trust model:
                        paths, every chain link and data_hash path, and the
                        tuple tree — in batched SHA-256 STARKs, one a block
                        shard (prover.skip_claims).
+  with_ed_stark=True   additionally proves every scalar multiplication of
+                       the signature batch equation in the Ed25519 STARK
+                       (prover.ed_claims); the verifier re-derives the
+                       scalars and points and sums the claimed results.
+                       With with_sha_stark="full" this is the strongest
+                       tier: every hash and every signature proven.
 
-The JAX package's Ed25519 STARK tier (with_ed_stark=True) is not ported yet
-(ROADMAP queue 1): prove_skip refuses it and the verifier fails closed on a
-proof that carries one.
-
-Bundle binding: the SHA STARK is proven FIRST and a SHA-256 digest of its
+Bundle binding: the aux STARKs are proven FIRST and a SHA-256 digest of each
 claim list enters the main SkipAir STARK's public inputs (publics 30..37;
 38..45 for the Ed25519 STARK), so the transcripts form one tamper-evident
 object. The proof bytes equal the JAX package's for the same witness,
@@ -45,7 +50,7 @@ config and tier, and either package's verifier accepts the other's proofs.
 verify_skip_proof() re-checks the STARK(s), the threshold inequalities over
 the public integers, the digest binding, and — given the claimed witness
 data, passed or embedded in the proof — the tuple-tree or full-coverage
-claim walk and the signer/power binding.
+claim walk, the Ed25519 batch equation and the signer/power binding.
 """
 
 from __future__ import annotations
@@ -60,7 +65,7 @@ from blobstreamx_tpu_torch.circuits.step import StepCheckResult, StepPublicOutpu
 from blobstreamx_tpu_torch.circuits.witness import SkipWitness
 from blobstreamx_tpu_torch.device import resolve
 from blobstreamx_tpu_torch.golden import goldilocks as gold
-from blobstreamx_tpu_torch.prover import sha_claims, skip_claims, stark
+from blobstreamx_tpu_torch.prover import ed_claims, sha_claims, skip_claims, stark
 from blobstreamx_tpu_torch.prover.air import Air
 from blobstreamx_tpu_torch.prover.config import StarkConfig
 from blobstreamx_tpu_torch.utils.timing import TimingTree
@@ -231,8 +236,8 @@ class SkipProof:
     # tree (prover.sha_claims.ShaStarkProof, with_sha_stark=True) or every
     # hash of the skip relation (prover.skip_claims.SkipShaProof, "full")
     sha_stark: object | None = None
-    # the Ed25519 scalar-mul STARK of the JAX package (not ported yet: the
-    # port's prover never sets it and its verifier fails closed on it)
+    # the Ed25519 scalar-mul STARK over the signature batch equation
+    # (prover.ed_claims.EdStarkProof, with_ed_stark=True)
     ed_stark: object | None = None
     # the embedded claim bundle (SkipClaimData): UNTRUSTED hints that make
     # the serialized proof self-contained — the verifier re-derives the claim
@@ -302,10 +307,9 @@ def prove_skip(
     when the standard prover would not fit the device); with_sha_stark="full"
     proves every hash of the skip relation, one STARK a shard of at most
     skip_claims.DEFAULT_MAX_SHARD_BLOCKS blocks, each through prove_auto.
-    Either embeds the claim bundle in the proof. with_ed_stark=True is the
-    JAX package's tier not ported yet: it raises NotImplementedError."""
-    if with_ed_stark:
-        raise NotImplementedError("with_ed_stark (the Ed25519 STARK) is not ported yet: ROADMAP queue 1")
+    with_ed_stark=True also proves every scalar multiplication of the
+    signature batch equation in the Ed25519 STARK (through prove_auto).
+    Any aux STARK embeds the claim bundle in the proof."""
     device = resolve(device)
     config = config or StarkConfig()
     timing = TimingTree("prove_skip")
@@ -316,8 +320,8 @@ def prove_skip(
     with timing.scope("trace"):
         trace = build_skip_trace(res)
 
-    # the aux STARK is proven BEFORE the main STARK so its claim digest
-    # enters the main transcript
+    # the aux STARKs are proven BEFORE the main STARK so their claim
+    # digests enter the main transcript
     sha_proof = None
     if with_sha_stark == "full":
         with timing.scope("sha_stark", items=len(witness.range_heights), unit="headers", sync=device):
@@ -331,7 +335,13 @@ def prove_skip(
         if sha_root != res.outputs.data_commitment:
             raise ValueError("sha-stark root mismatch vs device data commitment")
 
-    publics = skip_publics(res.outputs, res, sha_claim_digest(sha_proof))
+    ed_proof = None
+    if with_ed_stark:
+        items = signature_items(witness)
+        with timing.scope("ed_stark", items=len(items), unit="signatures", sync=device):
+            ed_proof = ed_claims.prove_batch_stark(items, config=config, device=device, timing=timing)
+
+    publics = skip_publics(res.outputs, res, sha_claim_digest(sha_proof), ed_claim_digest(ed_proof))
     with timing.scope("stark", items=trace.shape[0], unit="rows", sync=device):
         proof = stark.prove(SkipAir(), trace, publics, config, device=device)
     timing.finish()
@@ -342,9 +352,12 @@ def prove_skip(
         stark=proof,
         timing=timing.render(),
         sha_stark=sha_proof,
+        ed_stark=ed_proof,
         # the untrusted hint bundle rides along whenever an aux STARK is
         # present, so the serialized proof verifies self-contained
-        claims=claim_data_from_witness(witness) if sha_proof is not None else None,
+        claims=claim_data_from_witness(witness)
+        if (sha_proof is not None or ed_proof is not None)
+        else None,
     )
 
 
@@ -535,9 +548,11 @@ def verify_skip_proof_detailed(
     With claims (supplied, or else embedded in the proof): the SHA STARK's
     claim walk (the tuple tree, or for a "full" proof the full-coverage walk
     — validator trees, inclusion paths, chain links — anchored at the public
-    roots), and the signer/power binding between the claimed lists and the
-    public sums. A SHA STARK without the claim data its walk needs, and the
-    JAX package's Ed25519 STARK (not ported yet), fail closed."""
+    roots), the Ed25519 STARK's batch equation over the claimed signature
+    items, and the signer/power binding between the claimed lists and the
+    public sums. An aux STARK without the claim data its check needs fails
+    closed, and so does an Ed25519 STARK whose embedded bundle lacks the
+    validator lists of the binding."""
     config = config or StarkConfig()
     claims_src = "supplied"
     if claims is None:
@@ -619,8 +634,15 @@ def verify_skip_proof_detailed(
             return False, detail
 
     if proof.ed_stark is not None:
-        detail["ed_stark"] = "failed: the Ed25519 STARK is not ported yet (fail closed)"
-        return False, detail
+        if claims is not None and claims.sign_items is not None:
+            if not ed_claims.verify_batch_stark(proof.ed_stark, claims.sign_items, config=config):
+                detail["ed_stark"] = "failed: batch equation rejected"
+                return False, detail
+            detail["ed_stark"] = "ok"
+        else:
+            # FAIL CLOSED (see sha_stark above)
+            detail["ed_stark"] = "failed: claim data unavailable (fail closed)"
+            return False, detail
 
     if (
         claims is not None
@@ -632,6 +654,14 @@ def verify_skip_proof_detailed(
         detail["binding"] = r if r == "ok" else f"failed: {r}"
         if r != "ok":
             return False, detail
+    elif proof.ed_stark is not None and claims_src == "embedded":
+        # the batch equation alone does not tie the signers to the public
+        # power sums. The prover always embeds the validator lists with the
+        # signature items, so an embedded bundle without them was truncated:
+        # fail closed. (A caller SUPPLYING partial claims chose to;
+        # detail["binding"] records the skip.)
+        detail["binding"] = "failed: embedded claims lack binding inputs (fail closed)"
+        return False, detail
     return True, detail
 
 

@@ -1,12 +1,11 @@
 """Canonical proof (de)serialization — JSON-based, integers only, so the
 encoding is lossless and platform-independent (bit-exactness is the
 invariant; there are no floats anywhere in a proof). Covers StarkProof,
-the skip proof at the default, SHA-256 and full-coverage SHA-256 tiers (its
-batched-SHA STARK, sharded at the full tier, and the embedded claim bundle)
-and the step proof, in the JAX package's schema: the bytes of a port proof
-equal the JAX package's for the same proof, so either package's verifier
-reads the other's blobs. Blobs of the JAX package's tier that is not ported
-yet (the Ed25519 STARK) are refused at decode time.
+the skip proof at every tier (its batched-SHA STARK, sharded at the full
+tier, its Ed25519 scalar-mul STARK and the embedded claim bundle) and the
+step proof, in the JAX package's schema: the bytes of a port proof equal the
+JAX package's for the same proof, so either package's verifier reads the
+other's blobs.
 """
 
 from __future__ import annotations
@@ -186,6 +185,32 @@ def sha_claims_from_dict(d: dict):
     return ShaStarkProof(stark=stark_proof_from_dict(d["stark"]), **kw)
 
 
+def ed_claims_to_dict(p) -> dict:
+    # aux per segment: (scalar, (px, py), (X, Y, Z, T)) as JSON integers
+    # (arbitrary precision, exact)
+    return {
+        "stark": stark_proof_to_dict(p.stark),
+        "aux": [
+            [int(s), [int(pt[0]), int(pt[1])], [int(v) for v in out]]
+            for s, pt, out in p.aux
+        ],
+        "n_rows": int(p.n_rows),
+    }
+
+
+def ed_claims_from_dict(d: dict):
+    from blobstreamx_tpu_torch.prover.ed_claims import EdStarkProof
+
+    return EdStarkProof(
+        stark=stark_proof_from_dict(d["stark"]),
+        aux=[
+            (int(s), (int(pt[0]), int(pt[1])), tuple(int(v) for v in out))
+            for s, pt, out in d["aux"]
+        ],
+        n_rows=int(d["n_rows"]),
+    )
+
+
 def claim_data_to_dict(c) -> dict:
     """pipeline.SkipClaimData -> plain dict — the untrusted hint bundle a
     verifier needs to walk the aux STARK claims."""
@@ -239,8 +264,8 @@ def claim_data_from_bytes(b: bytes):
 
 
 def skip_proof_to_bytes(p) -> bytes:
-    """Serialize a pipeline.SkipProof (its SHA STARK and embedded claim
-    bundle included when present: one self-contained file)."""
+    """Serialize a pipeline.SkipProof (its SHA and Ed25519 STARKs and
+    embedded claim bundle included when present: one self-contained file)."""
     d = {
         "schema": SCHEMA,
         "kind": "skip",
@@ -258,7 +283,7 @@ def skip_proof_to_bytes(p) -> bytes:
     if p.sha_stark is not None:
         d["sha_stark"] = sha_claims_to_dict(p.sha_stark)
     if p.ed_stark is not None:
-        raise ValueError("the Ed25519 STARK is not ported yet (ROADMAP queue 1)")
+        d["ed_stark"] = ed_claims_to_dict(p.ed_stark)
     if p.claims is not None:
         d["claims"] = claim_data_to_dict(p.claims)
     return json.dumps(d, separators=(",", ":")).encode()
@@ -280,7 +305,6 @@ def _skip_proof_from_dict(d: dict):
         target_root=bytes.fromhex(d["outputs"]["target_root"]),
         data_commitment=bytes.fromhex(d["outputs"]["data_commitment"]),
     )
-    _require("ed_stark" not in d, "the Ed25519 STARK is not ported yet (ROADMAP queue 1)")
     return pipeline.SkipProof(
         outputs=out,
         publics=list(d["publics"]),
@@ -288,6 +312,7 @@ def _skip_proof_from_dict(d: dict):
         stark=stark_proof_from_dict(d["stark"]),
         timing="",
         sha_stark=sha_claims_from_dict(d["sha_stark"]) if "sha_stark" in d else None,
+        ed_stark=ed_claims_from_dict(d["ed_stark"]) if "ed_stark" in d else None,
         claims=claim_data_from_dict(d["claims"]) if "claims" in d else None,
     )
 

@@ -421,7 +421,8 @@ def prove_streaming(
 
         n_s2 = air.n_stage2
         if n_s2:
-            s2 = air.build_stage2(trace, chals, aux)
+            with phase("stage 2 (host)"):
+                s2 = air.build_stage2(trace, chals, aux)
             assert s2.shape == (n, n_s2)
             s2_src = _Source(np.asarray(s2, np.uint64) % P, chunk, cache_ok, device)
             s2_layers = _stream_commit(s2_src, config, shift, ch)

@@ -28,7 +28,9 @@ result):
      quotient's coset INTT (2^21, 2) and LDE (2^21, 16)), at phase 10's
      512-block shard (its 128-column trace chunks: INTT (2^15, 128), LDE
      (2^18, 128), and the ragged last chunk (2^15, 20), (2^18, 20)), at
-     (2^16, 8) and
+     phase 12's Ed STARK (its 128-column trace chunks: INTT (2^16, 128),
+     LDE (2^19, 128); its quotient: coset INTT (2^19, 2), LDE (2^19, 16)),
+     at (2^16, 8) and
      at the edges of its design (the smallest long column (2^15, 1) and
      (2^15, 3) inverse, a ragged column tile; an uneven split (2^17, 5);
      the largest two-pass column (2^22, 8); three passes (2^23, 4)), each
@@ -49,7 +51,9 @@ result):
      by the CPU tests); and the 3-header, 1-validator chain of
      tests/test_torch_full_tier.py's slow test, proven on cuda at the
      full-coverage tier under that test's config, hashes to the SHA-256 of
-     the CPU's proof, which the JAX package's verifier accepts;
+     the CPU's proof, which the JAX package's verifier accepts; and the same
+     chain at the Ed25519 tier (tests/test_torch_ed_tier.py's slow test)
+     likewise;
   5. config 5 (1024 headers, 32 validators, seed 7, trusted 1 -> target
      1024, default StarkConfig): witness, a cold and a warm prove_skip on
      cuda, the port's verifier (must accept), a tampered publics[0] (must
@@ -112,17 +116,35 @@ result):
      SHA proof stripped (the claim digest binding), one embedded range data
      hash (the claim walk), a wrong quotient opening in the first shard's
      STARK (that shard's STARK check). One JSON line {"config5_full": {...}}.
+ 12. config 5 at the Ed25519 STARK tier (phase 5's witness; it runs after
+     phase 10 and before phase 11): a cold and a warm prove_skip(w,
+     device="cuda", with_ed_stark=True) (32 signatures, 65 scalar
+     multiplications padded to 128 segments: a 65,536 x 1,069 trace, 2^19
+     rows extended, on the streaming path, asserted), the TimingTree, the
+     launches (ntt, ntt_multi, poseidon, edwards_add and pow_chain must each
+     be > 0), the peak device memory (under the card's) and what was
+     resident before, the SHA-256 of the warm proof's bytes (== the cold
+     proof's), a serializer round trip, the port's verifier (must accept
+     with ed_stark "ok" and binding "ok") and five tampers, each rejected
+     with its own verdict: a claimed result point, a claimed scalar and the
+     Ed STARK stripped (the claim digest binding; the first two also fail
+     the Ed STARK's own check), a wrong quotient opening in the Ed STARK
+     (the batch equation's STARK check) and an embedded claim bundle
+     without the validator lists (fail closed). One JSON line
+     {"config5_ed": {...}}; with --profile, one more warm Ed-tier prove
+     under torch.profiler.
  11. every (n, columns, direction) that the NTT kernels were launched at in
-     phases 4-10 and phase 3 did not check (recorded at the kernel's
+     phases 4-10 and 12 and phase 3 did not check (recorded at the kernel's
      wrapper while the paths ran), held against the plain version on
      seeded inputs: mismatches must be 0.
 
 Each phase prints its wall time. Each path has its own list of kernels that
 must launch. Before the last line come {"config5": ...}, {"config4": ...},
-{"config5_sha": ...}, {"step": ...}, {"config5_full": ...} and
-{"kernels": [...]}, where each kernel's "launches" is from the warm run of
-its own path ("path") and "launches_by_path" has all five (the step path's
-from the 256-validator warm prove); the last line is
+{"config5_sha": ...}, {"step": ...}, {"config5_full": ...},
+{"config5_ed": ...} and {"kernels": [...]}, where each kernel's "launches"
+is from the warm run of its own path ("path") and "launches_by_path" has
+all six (the step path's from the 256-validator warm prove); the last line
+is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Bounds: the least time the card could take, the larger of the bytes moved
@@ -163,6 +185,7 @@ PATH_KERNELS = {
     "config5_sha": ("ntt", "ntt_multi", "poseidon", "edwards_add", "pow_chain"),
     "step": ("ntt", "poseidon", "edwards_add", "pow_chain"),
     "config5_full": ("ntt", "ntt_multi", "poseidon", "edwards_add", "pow_chain"),
+    "config5_ed": ("ntt", "ntt_multi", "poseidon", "edwards_add", "pow_chain"),
 }
 # the small chains of phase 4 and tests/test_pipeline.py (seed 11, 12 headers, 4 validators) and of
 # tests/test_torch_full_tier.py's slow test (seed 11, 3 headers, 1 validator), with their configs
@@ -173,6 +196,11 @@ TINY_CFG = dict(rate_bits=2, cap_height=1, num_query_rounds=4, proof_of_work_bit
 # SHA-256 of the tiny chain's full-tier proof (trusted 1 -> target 2) under TINY_CFG: the CPU's bytes,
 # which the JAX package's verifier accepts (tests/test_torch_full_tier.py, slow)
 TINY_FULL_PROOF_SHA256 = "bb54aad55410b55b278f68687e54041f092ef87be1a35d9ec14ab5d172dec522"
+# SHA-256 of the tiny chain's Ed25519-tier proof (trusted 1 -> target 2, one signature: a 4-segment Ed
+# STARK) under TINY_CFG: the CPU's bytes, which the JAX package's verifier accepts
+# (tests/test_torch_ed_tier.py, slow)
+TINY_ED_PROOF_SHA256 = "d43cd486407439988a3c28cc613130092ffee5173bafd1dbd262ff506d4f24ff"
+ED_SEGMENTS = 128  # config 5: 32 signatures, 2 * 32 + 1 scalar multiplications, padded
 CUTOVER_FIT_ROWS = (1 << 12, 1 << 13, 1 << 14)  # Sha256Air traces through stark.prove
 CUTOVER_MEMORY_SHARE = 0.85  # of the card's memory, the most the fit may predict at the cutover
 
@@ -357,6 +385,10 @@ def check_ntt_multi(rng, dev):
         ((1 << 17, 5), False, "uneven split (9 + 8), ragged column tile"),
         ((1 << 22, 8), False, "largest two-pass column"),
         ((1 << 23, 4), False, "three passes"),
+        ((1 << 16, 128), True, "Ed STARK (phase 12): trace chunk INTT"),
+        ((1 << 19, 128), False, "Ed STARK (phase 12): trace chunk LDE"),
+        ((1 << 19, 2), True, "Ed STARK (phase 12): quotient coset INTT"),
+        ((1 << 19, 16), False, "Ed STARK (phase 12): quotient LDE"),
     ], long_path=True)
 
 
@@ -626,6 +658,14 @@ def small_chain_card_vs_cpu():
     log(f"  tiny chain (seed 11, 3 headers, 1 validator, 1 -> 2) at the full tier: card "
         f"{time.perf_counter() - t0:.3f} s, {len(blob)} proof bytes, SHA-256 {digest}")
     assert digest == TINY_FULL_PROOF_SHA256, "the card's full-tier proof differs from the CPU's (its SHA-256)"
+
+    t0 = time.perf_counter()
+    blob = skip_proof_to_bytes(pipeline.prove_skip(tiny, StarkConfig(**TINY_CFG), device="cuda",
+                                                   with_ed_stark=True))
+    digest = hashlib.sha256(blob).hexdigest()
+    log(f"  tiny chain at the Ed25519 tier: card {time.perf_counter() - t0:.3f} s, {len(blob)} proof bytes, "
+        f"SHA-256 {digest}")
+    assert digest == TINY_ED_PROOF_SHA256, "the card's Ed-tier proof differs from the CPU's (its SHA-256)"
 
 
 def warm_run(prove):
@@ -1139,6 +1179,129 @@ def config5_full(smi: str):
     return launches
 
 
+# phase 12's tampers of an Ed25519-tier proof: the detail field each must fail in and its verdict. A
+# changed claimed scalar or result point in aux, or the Ed STARK stripped, change what the claim digest
+# binds (publics 38..45); a wrong quotient opening in the Ed STARK leaves the binding intact, so only the
+# batch equation's own STARK check can reject it; an embedded claim bundle without the validator lists
+# leaves the signers unbound to the public power sums, and the verifier fails closed
+ED_TAMPERS = {
+    "result_point": ("ed_stark", "failed: claim digest not bound in transcript"),
+    "scalar": ("ed_stark", "failed: claim digest not bound in transcript"),
+    "strip_ed_stark": ("ed_stark", "failed: claim digest not bound in transcript"),
+    "ed_stark_opening": ("ed_stark", "failed: batch equation rejected"),
+    "no_validator_lists": ("binding", "failed: embedded claims lack binding inputs (fail closed)"),
+}
+ED25519_Q = (1 << 255) - 19
+
+
+def ed_tamper(proof, how: str):
+    """One of phase 12's tampers of an Ed25519-tier proof (ED_TAMPERS)."""
+    ed = proof.ed_stark
+    if how == "strip_ed_stark":
+        return dataclasses.replace(proof, ed_stark=None)
+    if how == "no_validator_lists":
+        return dataclasses.replace(proof, claims=dataclasses.replace(proof.claims, trusted_vals=None,
+                                                                     target_vals=None))
+    if how == "ed_stark_opening":
+        (a, b), *qz = ed.stark.quotient_zeta
+        bad = dataclasses.replace(ed.stark, quotient_zeta=[((a + 1) % GOLDILOCKS_P, b)] + qz)
+        return dataclasses.replace(proof, ed_stark=dataclasses.replace(ed, stark=bad))
+    (scalar, pt, out), *rest = ed.aux
+    if how == "scalar":
+        first = (scalar ^ 4, pt, out)
+    else:
+        first = (scalar, pt, ((out[0] + 1) % ED25519_Q,) + tuple(out[1:]))
+    return dataclasses.replace(proof, ed_stark=dataclasses.replace(ed, aux=[first] + rest))
+
+
+def config5_ed(w, smi: str, profile: bool):
+    """Phase 12: config 5 at the Ed25519 STARK tier (phase 5's witness): a
+    cold and a warm prove_skip(w, device="cuda", with_ed_stark=True), the
+    Ed STARK's shape (ED_SEGMENTS segments of 512 rows) and the path
+    prove_auto took (must be streaming), the TimingTree, the launches (each
+    of PATH_KERNELS["config5_ed"] > 0), the peak device memory (under the
+    card's) and what was resident before, the SHA-256 of the warm proof's
+    bytes (== the cold proof's), a serializer round trip, the verifier (must
+    accept with ed_stark "ok" and binding "ok") and the ED_TAMPERS, each
+    rejected with its verdict; a changed scalar or result point is also
+    rejected by the Ed STARK's own check (ed_claims.verify_batch_stark)
+    without the digest binding. With --profile, one more warm Ed-tier prove
+    under torch.profiler."""
+    import torch
+
+    from blobstreamx_tpu_torch.prover import ed_air, ed_claims, pipeline, stark_stream
+    from blobstreamx_tpu_torch.prover.config import StarkConfig
+    from blobstreamx_tpu_torch.prover.serialize import skip_proof_from_bytes, skip_proof_to_bytes
+
+    def prove():
+        return pipeline.prove_skip(w, device="cuda", with_ed_stark=True)
+
+    t0 = time.perf_counter()
+    cold = prove()
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    log(f"  cold prove_skip(with_ed_stark=True): {cold_s:.3f} s")
+
+    warm, warm_s, launches, peak, resident = warm_run(prove)
+    total = torch.cuda.get_device_properties(0).total_memory
+    ed = warm.ed_stark
+    air = ed_air.EdScalarMulAir(len(ed.aux))
+    path = "streaming" if stark_stream.uses_streaming(air, ed.n_rows, StarkConfig()) else "standard"
+    items = pipeline.signature_items(w)
+    log(f"  warm prove_skip(with_ed_stark=True): {warm_s:.3f} s")
+    log("  warm TimingTree:\n" + "\n".join("    " + line for line in warm.timing.splitlines()))
+    log(f"  Ed STARK: {len(items)} signatures, {len(ed.aux)} segments, {ed.n_rows} x {air.n_cols} trace, "
+        f"{air.n_stage2} stage-2 columns, prover path {path}")
+    log(f"  kernel launches in the warm prove: {json.dumps(launches)}")
+    log(f"  peak device memory in the warm prove: {peak} bytes ({resident} resident before it; the card has {total})")
+    assert len(ed.aux) == ED_SEGMENTS and ed.n_rows == ED_SEGMENTS * ed_air.SEG, "not config 5's Ed STARK"
+    assert path == "streaming", "prove_auto did not take the streaming path at config 5's Ed tier"
+    missing = [k for k in PATH_KERNELS["config5_ed"] if launches[k] == 0]
+    assert not missing, f"kernels of the Ed-tier path were not launched: {missing} ({launches})"
+    assert peak < total, "peak device memory above the card's"
+    blob = skip_proof_to_bytes(warm)
+    digest = hashlib.sha256(blob).hexdigest()
+    round_trip = skip_proof_to_bytes(skip_proof_from_bytes(blob)) == blob
+    log(f"  warm proof: {len(blob)} bytes, SHA-256 {digest}, serializer round trip equal: {round_trip}")
+    assert blob == skip_proof_to_bytes(cold), "warm and cold Ed-tier proofs differ"
+    assert round_trip, "the Ed-tier proof does not survive a serializer round trip"
+    del cold, blob
+
+    t0 = time.perf_counter()
+    ok, detail = pipeline.verify_skip_proof_detailed(warm)
+    verify_s = time.perf_counter() - t0
+    log(f"  verify_skip_proof_detailed: {ok} {json.dumps(detail)} ({verify_s:.3f} s)")
+    assert ok and detail["ed_stark"] == "ok" and detail["binding"] == "ok", \
+        "the port's verifier rejected the Ed-tier proof"
+    tampers = {}
+    for how, (field, verdict) in ED_TAMPERS.items():
+        t0 = time.perf_counter()
+        bad = ed_tamper(warm, how)
+        ok_t, detail_t = pipeline.verify_skip_proof_detailed(bad)
+        tampers[how] = detail_t.get(field)
+        line = f"  tamper {how}: accepted {ok_t}, {field} {detail_t.get(field)}"
+        if how in ("scalar", "result_point"):
+            alone = ed_claims.verify_batch_stark(bad.ed_stark, items, config=StarkConfig())
+            line += f"; the Ed STARK's own check accepts it: {alone}"
+            assert not alone, f"the Ed STARK's check accepted tamper {how}"
+        log(f"{line} ({time.perf_counter() - t0:.3f} s)")
+        assert not ok_t, f"an Ed-tier proof with tamper {how} was accepted"
+        assert tampers[how] == verdict, f"tamper {how} was rejected by another check than expected: {detail_t}"
+    rec = dict(
+        cold_s=cold_s, warm_s=warm_s, verify_s=verify_s, launches=launches, peak_device_bytes=peak,
+        resident_before_bytes=resident, card_memory_bytes=total, prover_path=path, signatures=len(items),
+        segments=len(ed.aux), rows=ed.n_rows, cols=air.n_cols, stage2_cols=air.n_stage2, proof_sha256=digest,
+        tampers_rejected=tampers, timing=warm.timing.splitlines(), card=smi,
+    )
+    log(json.dumps({"config5_ed": rec}))
+    if profile:
+        from blobstreamx_tpu_torch.ops import ntt
+
+        proof = profile_warm("Ed-tier warm prove", prove, spans=[(ntt, "coset_scale")])
+        log("  TimingTree:\n" + "\n".join("    " + line for line in proof.timing.splitlines()))
+    return launches
+
+
 def profile_warm(what: str, run, spans=()):
     """One more warm run of a path under torch.profiler (only with
     --profile): device time by kernel name, host time by operator, the
@@ -1269,6 +1432,9 @@ def main() -> int:
 
         with phase("[10] config 5 at the full-coverage SHA-256 tier, 192 headers, on the card"):
             by_path["config5_full"] = config5_full(smi)
+
+        with phase("[12] config 5 at the Ed25519 STARK tier on the card"):
+            by_path["config5_ed"] = config5_ed(w, smi, profile="--profile" in sys.argv[1:])
 
     with phase("[11] the NTT kernels at every shape the main paths launched (vs plain PyTorch, exact)"):
         check_recorded_ntt(np.random.default_rng(11), seen, rows)

@@ -6,6 +6,8 @@ of two trees in one call.
     python3 prover_ab.py sha_provers [--tree DIR] [--warm N]
     python3 prover_ab.py sha_tier [--tree DIR] [--warm N] [--expect-sha256 HEX]
     python3 prover_ab.py full_tier [--tree DIR] [--warm N] [--expect-sha256 HEX]
+    python3 prover_ab.py ed_tier [--tree DIR] [--warm N] [--expect-sha256 HEX]
+    python3 prover_ab.py north_star [--tree DIR] [--warm N] [--expect-sha256 HEX]
     python3 prover_ab.py config4 [--tree DIR] [--warm N]
 
 --tree imports blobstreamx_tpu_torch (and builds its kernels) from DIR,
@@ -35,6 +37,16 @@ full_tier:   config 5 at the full-coverage SHA-256 tier at its full depth,
              scope, the path prove_auto took); the verify wall of the last proof
              (must accept with "ok: full coverage"); the SHA-256 of the
              proof bytes (warm == cold; --expect-sha256 as for sha_tier).
+ed_tier:     config 5 at the Ed25519 STARK tier (chip_smoke.py phase 12's
+             prove_skip(w, device="cuda", with_ed_stark=True): 128 segments,
+             a 65,536-row trace): as full_tier, with each run's kernel
+             launches and TimingTree, the Ed STARK's shape and the path
+             prove_auto took; the verifier must accept with ed_stark "ok"
+             and binding "ok".
+north_star:  config 5 at the strongest tier, every hash and every signature
+             proven (prove_skip(w, device="cuda", with_sha_stark="full",
+             with_ed_stark=True)): as ed_tier, the verifier must also say
+             "ok: full coverage".
 config4:     config 4 (chip_smoke.py phase 7's path: the 2^22 four-step
              forward and inverse, a low-degree codeword and its FRI proof):
              one cold and N warm runs, walls and peak memory.
@@ -136,20 +148,45 @@ def sha_tier(warm: int, expect: str | None) -> list[dict]:
     return rows
 
 
-def full_tier(warm: int, expect: str | None) -> list[dict]:
+# skip-proof tiers at config 5's full depth: prove_skip's tier arguments, and
+# the verdicts the verifier's detail must give
+TIERS = {
+    "full_tier": (dict(with_sha_stark="full"), {"sha_stark": "ok: full coverage"}),
+    "ed_tier": (dict(with_ed_stark=True), {"ed_stark": "ok", "binding": "ok"}),
+    "north_star": (dict(with_sha_stark="full", with_ed_stark=True),
+                   {"sha_stark": "ok: full coverage", "ed_stark": "ok", "binding": "ok"}),
+}
+
+
+def skip_tier(what: str, warm: int, expect: str | None) -> list[dict]:
     import hashlib
 
+    from blobstreamx_tpu_torch import kernels
     from blobstreamx_tpu_torch.circuits import fixtures as fx, witness as wit
     from blobstreamx_tpu_torch.prover import pipeline
     from blobstreamx_tpu_torch.prover.serialize import skip_proof_to_bytes
 
+    tier, want = TIERS[what]
     chain = fx.generate_chain(seed=7, n_headers=1024, n_validators=32, sign_heights={1024})
     w = wit.build_skip_witness(chain, trusted_height=1, target_height=1024)
     rows, digests = [], set()
     for i in range(warm + 1):
-        proof, rec = timed(lambda: pipeline.prove_skip(w, device="cuda", with_sha_stark="full"))
+        kernels.reset_counts()
+        proof, rec = timed(lambda: pipeline.prove_skip(w, device="cuda", **tier))
         digests.add(hashlib.sha256(skip_proof_to_bytes(proof)).hexdigest())
-        rows.append(dict(run="cold" if i == 0 else f"warm{i - 1}", shards=proof.sha_stark.shard_log, **rec))
+        rows.append(dict(run="cold" if i == 0 else f"warm{i - 1}", launches=dict(kernels.launches), **rec))
+        if proof.sha_stark is not None:
+            rows[-1]["shards"] = proof.sha_stark.shard_log
+        if proof.ed_stark is not None:
+            from blobstreamx_tpu_torch.prover import ed_air, stark_stream
+            from blobstreamx_tpu_torch.prover.config import StarkConfig
+
+            air = ed_air.EdScalarMulAir(len(proof.ed_stark.aux))
+            rows[-1]["ed_stark"] = dict(
+                segments=len(proof.ed_stark.aux), rows=proof.ed_stark.n_rows, cols=air.n_cols,
+                stage2_cols=air.n_stage2,
+                path="streaming" if stark_stream.uses_streaming(air, proof.ed_stark.n_rows, StarkConfig())
+                else "standard")
         print(json.dumps(rows[-1]), flush=True)
         print(proof.timing, flush=True)
         if i < warm:
@@ -158,8 +195,8 @@ def full_tier(warm: int, expect: str | None) -> list[dict]:
     ok, detail = pipeline.verify_skip_proof_detailed(proof)
     rows.append(dict(verify_s=time.perf_counter() - t0, verified=ok, detail=detail))
     print(json.dumps(rows[-1]), flush=True)
-    assert ok and detail["sha_stark"] == "ok: full coverage", f"the verifier rejected the full-tier proof: {detail}"
-    assert len(digests) == 1, "the full-tier proofs of one process differ"
+    assert ok and all(detail[k] == v for k, v in want.items()), f"the verifier rejected the {what} proof: {detail}"
+    assert len(digests) == 1, f"the {what} proofs of one process differ"
     digest = digests.pop()
     rows.append(dict(proof_sha256=digest))
     assert expect is None or digest == expect, f"proof SHA-256 {digest} differs from the expected {expect}"
@@ -184,11 +221,11 @@ def config4(warm: int) -> list[dict]:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("what", choices=("default", "sha_provers", "sha_tier", "full_tier", "config4"))
+    ap.add_argument("what", choices=("default", "sha_provers", "sha_tier", *TIERS, "config4"))
     ap.add_argument("--tree", default=os.path.dirname(os.path.abspath(__file__)))
     ap.add_argument("--warm", type=int, default=3)
     ap.add_argument("--expect-sha256", default=None,
-                    help="sha_tier, full_tier: the digest the proof bytes must have")
+                    help="sha_tier, full_tier, ed_tier, north_star: the digest the proof bytes must have")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.tree))
     import torch
@@ -204,7 +241,7 @@ def main() -> int:
     kernels.build()
     rows = {"default": lambda: default_tier(args.warm), "sha_provers": lambda: sha_provers(args.warm),
             "sha_tier": lambda: sha_tier(args.warm, args.expect_sha256),
-            "full_tier": lambda: full_tier(args.warm, args.expect_sha256),
+            **{t: lambda t=t: skip_tier(t, args.warm, args.expect_sha256) for t in TIERS},
             "config4": lambda: config4(args.warm)}[args.what]()
     print(json.dumps({args.what: rows, "tree": os.path.dirname(os.path.dirname(blobstreamx_tpu_torch.__file__)),
                       "card": smi}))

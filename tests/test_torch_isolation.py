@@ -32,6 +32,15 @@ def test_no_jax_or_reference_import(path):
     assert not bad, f"{path.name} imports {bad}"
 
 
+# the Ed25519 STARK's modules: each must be among the files checked above
+ED_MODULES = ("gf25519_gadget", "lookup", "ed_air", "ed_claims")
+
+
+def test_ed_stark_modules_are_checked():
+    checked = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    assert {f"blobstreamx_tpu_torch/prover/{m}.py" for m in ED_MODULES} <= checked
+
+
 @pytest.fixture(scope="module")
 def small_witness():
     chain = fx.generate_chain(seed=11, n_headers=12, n_validators=4, rotate_every=4,
@@ -69,6 +78,24 @@ def test_other_entry_points_raise_when_no_cuda(small_witness):
         step.verify_step(step_witness)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         pipeline.prove_step(step_witness)
+
+
+def test_ed_stark_entry_points_raise_when_no_cuda(small_witness):
+    """prove_batch_stark and prove_skip(with_ed_stark=True) refuse to fall
+    back to the CPU; prove_batch_stark takes the CPU when named (it reaches
+    the batch check, which refuses a malformed batch)."""
+    from blobstreamx_tpu_torch.prover import ed_claims, pipeline
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable here")
+    items = pipeline.signature_items(small_witness)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ed_claims.prove_batch_stark(items)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        pipeline.prove_skip(small_witness, with_ed_stark=True)
+    pk, msg, sig = items[0]
+    with pytest.raises(ValueError, match="malformed"):
+        ed_claims.prove_batch_stark([(pk[:31], msg, sig)], device="cpu")
 
 
 def test_grind_without_device_raises_when_no_cuda():

@@ -45,6 +45,10 @@ def fe(rng, n):
     # 128-column trace chunks and ragged last chunk, inverse at 2^15 rows and forward at 2^18
     (256, 4, True), (2048, 4, False),
     (1 << 15, 128, True), (1 << 18, 128, False), (1 << 15, 20, True), (1 << 18, 20, False),
+    # config 5's Ed25519 STARK (65,536 rows, rate_bits 3): its trace chunk INTT and LDE, its
+    # ragged last trace and stage-2 chunks, the quotient's coset INTT and LDE
+    (1 << 16, 128, True), (1 << 19, 128, False), (1 << 16, 45, True), (1 << 19, 49, False),
+    (1 << 19, 2, True), (1 << 19, 16, False),
 ])
 def test_ntt_kernel(n, c, inverse):
     from blobstreamx_tpu_torch.ops import ntt

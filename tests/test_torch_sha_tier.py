@@ -81,18 +81,16 @@ def test_fail_closed_without_claims(run):
 
 
 def test_unported_tiers_refused(run):
-    """The Ed25519 STARK tier is refused at prove and at decode; a
-    full-coverage blob without its shard STARKs is refused as malformed."""
-    w = run["witness"]
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        pipeline.prove_skip(w, CFG, device="cpu", with_ed_stark=True)
+    """Malformed blobs of the other tiers are refused at decode: a
+    full-coverage blob without its shard STARKs, and an Ed25519 STARK entry
+    with none of its fields."""
     d = json.loads(run["blob"])
     d["sha_stark"]["link_fields"] = []
     with pytest.raises(serialize.ProofDecodeError, match="lacks starks"):
         serialize.skip_proof_from_bytes(json.dumps(d).encode())
     d = json.loads(run["blob"])
     d["ed_stark"] = {}
-    with pytest.raises(serialize.ProofDecodeError, match="not ported"):
+    with pytest.raises(serialize.ProofDecodeError, match="malformed"):
         serialize.skip_proof_from_bytes(json.dumps(d).encode())
 
 
