@@ -53,9 +53,27 @@ class TimingTree:
             node.seconds = time.perf_counter() - t0
             self._stack.pop()
 
+    def note(self, text: str) -> None:
+        """Zero-duration annotation node (e.g. 'phase resumed from checkpoint')."""
+        self._stack[-1].children.append(TimingNode(text))
+
     def finish(self) -> "TimingTree":
         self.root.seconds = time.perf_counter() - self._t0
         return self
 
     def render(self) -> str:
         return "\n".join(self.root.lines())
+
+    def flat(self) -> dict[str, float]:
+        """Seconds by node path ("prove_skip/stark/quotient"), the record
+        utils.metrics writes."""
+        out = {}
+
+        def walk(node: TimingNode, prefix: str):
+            key = f"{prefix}{node.name}"
+            out[key] = node.seconds
+            for c in node.children:
+                walk(c, key + "/")
+
+        walk(self.root, "")
+        return out

@@ -133,18 +133,38 @@ result):
      without the validator lists (fail closed). One JSON line
      {"config5_ed": {...}}; with --profile, one more warm Ed-tier prove
      under torch.profiler.
+ 13. the operator's surface on the card (after phase 12, on phase 5's
+     chain and witness; operator_phase): (a) `python -m
+     blobstreamx_tpu_torch prove-skip` at config 5's Ed tier with
+     --checkpoint-dir, --metrics, --out and --claims-out, SIGKILLed once
+     its consensus and trace checkpoints exist (in the Ed STARK), then run
+     again: it must exit 0, note "consensus+trace resumed from checkpoint",
+     write phase 12's proof bytes (SHA-256) and a metrics timing record,
+     and `verify-skip --claims` must say "ok": true; (b) prove_skip in
+     this process from the CLI's directory: every phase resumed, no kernel
+     launched, the same bytes; then, with the main STARK's checkpoint
+     deleted, run_with_retry with a fault injected into the first main
+     STARK: the retry proves only the SkipAir STARK, the same bytes, and a
+     heartbeat file with start, heartbeat and stop records; (c)
+     prove_pipelined over three default-tier witnesses of one chain at
+     config 5's width, then the same proves serially: equal bytes in
+     order, both walls; (d) `prove-step --validators 32 --profile-dir T`
+     through the CLI writes a non-empty Chrome trace (verify-skip of (a)
+     runs beside it). Each part's wall, the checkpoint directory's bytes,
+     the card's name and power limit. One JSON line {"operator": {...}}.
  11. every (n, columns, direction) that the NTT kernels were launched at in
-     phases 4-10 and 12 and phase 3 did not check (recorded at the kernel's
-     wrapper while the paths ran), held against the plain version on
-     seeded inputs: mismatches must be 0.
+     phases 4-10, 12 and 13 and phase 3 did not check (recorded at the
+     kernel's wrapper while the paths ran), held against the plain version
+     on seeded inputs: mismatches must be 0.
 
 Each phase prints its wall time. Each path has its own list of kernels that
 must launch. Before the last line come {"config5": ...}, {"config4": ...},
 {"config5_sha": ...}, {"step": ...}, {"config5_full": ...},
-{"config5_ed": ...} and {"kernels": [...]}, where each kernel's "launches"
-is from the warm run of its own path ("path") and "launches_by_path" has
-all six (the step path's from the 256-validator warm prove); the last line
-is
+{"config5_ed": ...}, {"operator": ...} and {"kernels": [...]}, where each
+kernel's "launches" is from the warm run of its own path ("path") and
+"launches_by_path" has all seven (the step path's from the 256-validator
+warm prove; "operator" counts phase 13's in-process proves, (b) and (c));
+the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Bounds: the least time the card could take, the larger of the bytes moved
@@ -162,9 +182,13 @@ import dataclasses
 import hashlib
 from contextlib import contextmanager
 import json
+from pathlib import Path
+import shutil
 import subprocess
 import sys
 import time
+
+ROOT = Path(__file__).resolve().parent
 
 HBM_BYTES_PER_S = 3.35e12
 INT_OPS_PER_S = 67e12
@@ -186,7 +210,14 @@ PATH_KERNELS = {
     "step": ("ntt", "poseidon", "edwards_add", "pow_chain"),
     "config5_full": ("ntt", "ntt_multi", "poseidon", "edwards_add", "pow_chain"),
     "config5_ed": ("ntt", "ntt_multi", "poseidon", "edwards_add", "pow_chain"),
+    # phase 13's in-process part: the retried SkipAir STARK and the pipelined default-tier proves
+    "operator": ("ntt", "poseidon", "edwards_add", "pow_chain"),
 }
+# phase 13: the CLI's prove-skip at config 5's Ed tier (the chain of phase 5), and three pipelined
+# default-tier proves at config 5's width, on one chain signed at each target
+OPERATOR_CLI = ["prove-skip", "--headers", "1024", "--validators", "32", "--trusted", "1", "--target", "1024",
+                "--seed", "7", "--ed-stark"]
+PIPELINED = dict(seed=7, n_headers=1024, n_validators=32, trusted=1, targets=(1022, 1023, 1024))
 # the small chains of phase 4 and tests/test_pipeline.py (seed 11, 12 headers, 4 validators) and of
 # tests/test_torch_full_tier.py's slow test (seed 11, 3 headers, 1 validator), with their configs
 SMALL_CHAIN = dict(seed=11, n_headers=12, n_validators=4, rotate_every=4, sign_fraction=0.75, sign_heights={10})
@@ -1299,6 +1330,241 @@ def config5_ed(w, smi: str, profile: bool):
 
         proof = profile_warm("Ed-tier warm prove", prove, spans=[(ntt, "coset_scale")])
         log("  TimingTree:\n" + "\n".join("    " + line for line in proof.timing.splitlines()))
+    return launches, digest
+
+
+def cli(*args: str) -> list[str]:
+    """The command line of `python -m blobstreamx_tpu_torch` with `args`."""
+    return [sys.executable, "-m", "blobstreamx_tpu_torch", *args]
+
+
+def dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def kill_once_phases_saved(cmd: list[str], run_root: Path, phases: tuple[str, ...], log_path: Path) -> float:
+    """Start `cmd` and SIGKILL it as soon as <run_root>/skip-*/ holds both
+    files of every one of `phases`; fails if it ends first or runs 600 s.
+    Returns the seconds it ran."""
+    timeout_s = 600.0
+    t0 = time.perf_counter()
+    with open(log_path, "w") as out:
+        proc = subprocess.Popen(cmd, cwd=ROOT, stdout=out, stderr=subprocess.STDOUT)
+        try:
+            while time.perf_counter() - t0 < timeout_s:
+                runs = list(run_root.glob("skip-*"))
+                if len(runs) == 1 and all((runs[0] / f"{ph}.{ext}").exists()
+                                          for ph in phases for ext in ("npz", "json")):
+                    proc.kill()  # SIGKILL
+                    break
+                if proc.poll() is not None:
+                    raise AssertionError(f"the CLI ended ({proc.returncode}) before saving {phases}: "
+                                         f"{log_path.read_text()[-2000:]}")
+                time.sleep(0.1)
+            else:
+                raise AssertionError(f"the CLI did not save {phases} within {timeout_s} s")
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+    return time.perf_counter() - t0
+
+
+def last_json(text: str) -> dict:
+    return json.loads(text.strip().splitlines()[-1])
+
+
+def timing_names(rendered: str) -> list[str]:
+    """The node names of a rendered TimingTree (each line without its time and rate)."""
+    return [line.split(" ms  ", 1)[1].split(" (")[0] for line in rendered.splitlines() if " ms  " in line]
+
+
+def operator_phase(w, ed_sha256: str, smi: str):
+    """Phase 13: the operator's surface on the card, on phase 5's config-5
+    witness `w` (the chain the CLI builds from OPERATOR_CLI).
+
+    (a) `python -m blobstreamx_tpu_torch prove-skip ... --ed-stark
+        --checkpoint-dir D --metrics M --out P --claims-out C`, SIGKILLed
+        once consensus and trace are saved (in the Ed STARK), then run
+        again: exit 0, "consensus+trace resumed from checkpoint" in its
+        TimingTree, the SHA-256 of P == phase 12's Ed-tier proof
+        (`ed_sha256`), M's timing record; `verify-skip --proof P --claims
+        C` says "ok": true.
+    (b) in-process prove_skip(w, with_ed_stark=True, checkpoint_dir=D):
+        every phase resumed, no kernel launched, P's bytes; then, with
+        stark.{npz,json} deleted, run_with_retry over it with a fault
+        injected into the first main STARK: the retry proves only the
+        SkipAir STARK (no aux STARK), P's bytes, and the heartbeat file
+        holds start, heartbeat and stop records.
+    (c) prove_pipelined over three default-tier witnesses (PIPELINED: three
+        targets of one config-5-width chain) with prefetch=1, then the same proves
+        serially: the same bytes in the same order; both walls.
+    (d) `prove-step --validators 32` through the CLI with --profile-dir T:
+        a non-empty Chrome trace under T (verify-skip of (a) runs meanwhile,
+        in its own process).
+
+    The kernel counts of (b) and (c) (in-process) are returned for the path
+    "operator"."""
+    import torch
+
+    from blobstreamx_tpu_torch import kernels
+    from blobstreamx_tpu_torch.circuits import fixtures as fx, witness as wit
+    from blobstreamx_tpu_torch.prover import pipeline, stark, stark_stream
+    from blobstreamx_tpu_torch.prover.overlap import prove_pipelined
+    from blobstreamx_tpu_torch.prover.serialize import skip_proof_to_bytes
+    from blobstreamx_tpu_torch.utils import failure
+
+    work = ROOT / "build" / "operator"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    ckpt, metrics_path, proof_path, claims_path = work / "ckpt", work / "metrics.jsonl", work / "proof.bin", \
+        work / "claims.bin"
+    torch.cuda.empty_cache()  # the CLI's processes share the card with this one
+    prove_cmd = cli("--metrics", str(metrics_path), *OPERATOR_CLI, "--checkpoint-dir", str(ckpt),
+                    "--out", str(proof_path), "--claims-out", str(claims_path))
+    rec = {"card": smi}
+
+    # (a) crash and resume of the CLI
+    t_a = time.perf_counter()
+    rec["killed_after_s"] = kill_once_phases_saved(prove_cmd, ckpt, ("consensus", "trace"), work / "killed.log")
+    (run_dir,) = ckpt.glob("skip-*")
+    saved = sorted(p.name for p in run_dir.iterdir())
+    log(f"  (a) CLI killed after {rec['killed_after_s']:.3f} s with {saved} saved ({dir_bytes(ckpt)} bytes)")
+    assert not (run_dir / "ed_stark.json").exists(), "the Ed STARK finished before the kill"
+    t0 = time.perf_counter()
+    resumed = subprocess.run(prove_cmd, cwd=ROOT, capture_output=True, text=True, timeout=900)
+    rec["resumed_run_s"] = time.perf_counter() - t0
+    assert resumed.returncode == 0, f"the resumed CLI run failed: {resumed.stderr[-3000:]}"
+    log("  (a) resumed CLI run TimingTree:\n" + "\n".join("    " + line for line in resumed.stderr.splitlines()
+                                                         if " ms  " in line))
+    assert "consensus+trace resumed from checkpoint" in timing_names(resumed.stderr), \
+        "the CLI did not resume consensus+trace"
+    cli_out = last_json(resumed.stdout)
+    blob = proof_path.read_bytes()
+    digest = hashlib.sha256(blob).hexdigest()
+    rec.update(checkpoint_bytes=dir_bytes(ckpt), checkpoint_files=sorted(p.name for p in run_dir.iterdir()),
+               cli_wall_s=cli_out["wall_s"], proof_sha256=digest)
+    log(f"  (a) resumed run: {rec['resumed_run_s']:.3f} s of process ({cli_out['wall_s']:.3f} s of prove); "
+        f"proof SHA-256 {digest}; checkpoint directory {rec['checkpoint_bytes']} bytes "
+        f"({rec['checkpoint_files']})")
+    assert digest == ed_sha256, "the resumed CLI's proof differs from phase 12's Ed-tier proof"
+    timing_recs = [r for r in map(json.loads, metrics_path.read_text().splitlines()) if r["event"] == "timing"]
+    assert len(timing_recs) == 1, f"expected one timing record, got {len(timing_recs)}"
+    m = timing_recs[0]
+    rec["metrics"] = {k: m[k] for k in ("n_headers", "n_validators", "n_rows")}
+    log(f"  (a) metrics timing record: {json.dumps(rec['metrics'])}, {len(m['phases'])} phases")
+    assert (m["n_headers"], m["n_validators"]) == (len(w.range_heights), len(w.target_set.powers)), m
+    rec["a_s"] = time.perf_counter() - t_a
+    # (b) whole-proof resume from the CLI's directory, then a retry after a fault in the main STARK
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    proof = pipeline.prove_skip(w, device="cuda", with_ed_stark=True, checkpoint_dir=str(ckpt))
+    torch.cuda.synchronize()
+    rec["full_resume_s"] = time.perf_counter() - t0
+    launched = {k: v for k, v in kernels.launches.items() if v}
+    log(f"  (b) full resume: {rec['full_resume_s']:.3f} s, kernels launched {launched}")
+    for note in ("consensus+trace", "ed_stark", "stark"):
+        assert f"{note} resumed from checkpoint" in timing_names(proof.timing), f"{note} was not resumed"
+    assert not launched, f"the full resume launched kernels: {launched}"
+    assert skip_proof_to_bytes(proof) == blob, "the resumed proof differs from the CLI's"
+    for ext in ("npz", "json"):
+        (run_dir / f"stark.{ext}").unlink()
+    proves, auto = [], []
+    orig_prove, orig_auto = stark.prove, stark_stream.prove_auto
+
+    def faulty_prove(air, *a, **k):
+        proves.append(type(air).__name__)
+        if len(proves) == 1:
+            raise RuntimeError("injected fault in the main STARK")
+        return orig_prove(air, *a, **k)
+
+    def counted_auto(air, *a, **k):
+        auto.append(type(air).__name__)
+        return orig_auto(air, *a, **k)
+
+    heartbeat = work / "heartbeat.jsonl"
+    stark.prove, stark_stream.prove_auto = faulty_prove, counted_auto
+    try:
+        t0 = time.perf_counter()
+        proof = failure.run_with_retry(
+            lambda: pipeline.prove_skip(w, device="cuda", with_ed_stark=True, checkpoint_dir=str(ckpt)),
+            attempts=2, heartbeat_path=str(heartbeat), run_id="operator", interval=0.2,
+            on_failure=lambda i, e: log(f"  (b) attempt {i} failed: {e}"))
+        torch.cuda.synchronize()
+        rec["retry_s"] = time.perf_counter() - t0
+    finally:
+        stark.prove, stark_stream.prove_auto = orig_prove, orig_auto
+    events = [json.loads(line)["event"] for line in heartbeat.read_text().splitlines()]
+    log(f"  (b) retry: {rec['retry_s']:.3f} s, main STARK proves {proves}, aux STARK proves {auto}, "
+        f"heartbeat events {events.count('start')} start / {events.count('heartbeat')} heartbeat / "
+        f"{events.count('stop')} stop")
+    assert proves == ["SkipAir", "SkipAir"] and auto == [], "the retry proved more than the main STARK"
+    names = timing_names(proof.timing)
+    assert "stark resumed from checkpoint" not in names and "ed_stark resumed from checkpoint" in names, names
+    assert skip_proof_to_bytes(proof) == blob, "the retried proof differs from the CLI's"
+    assert events.count("start") == events.count("stop") == 2 and events.count("heartbeat") >= 1, events
+    rec["heartbeats"] = events.count("heartbeat")
+    del proof
+
+    # (c) three default-tier proves pipelined, then serially
+    c = PIPELINED
+    t0 = time.perf_counter()
+    chain = fx.generate_chain(seed=c["seed"], n_headers=c["n_headers"], n_validators=c["n_validators"],
+                              sign_heights=set(c["targets"]))
+    rec["pipelined_chain_s"] = time.perf_counter() - t0
+
+    def builders():
+        return ((lambda t=t: wit.build_skip_witness(chain, trusted_height=c["trusted"], target_height=t))
+                for t in c["targets"])
+
+    t0 = time.perf_counter()
+    piped = [skip_proof_to_bytes(p) for p in prove_pipelined(builders(), prefetch=1, device="cuda")]
+    torch.cuda.synchronize()
+    rec["pipelined_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    serial = [skip_proof_to_bytes(pipeline.prove_skip(b(), device="cuda")) for b in builders()]
+    torch.cuda.synchronize()
+    rec["serial_s"] = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    log(f"  (c) {len(c['targets'])} default-tier proves ({c['trusted']} -> {c['targets']}): pipelined "
+        f"{rec['pipelined_s']:.3f} s, serial {rec['serial_s']:.3f} s (chain {rec['pipelined_chain_s']:.3f} s)")
+    log(f"  kernel launches in (b) and (c): {json.dumps(launches)}")
+    assert piped == serial, "the pipelined proofs differ from the serial ones"
+    assert len(set(piped)) == len(c["targets"]), "two targets gave the same proof"
+    missing = [k for k in PATH_KERNELS["operator"] if launches[k] == 0]
+    assert not missing, f"kernels of the operator path were not launched: {missing} ({launches})"
+
+    # (d) a profiled prove-step through the CLI, while verify-skip of (a) (host work) runs in its own process
+    trace_dir = work / "trace"
+    with open(work / "verify.log", "w") as verify_log:
+        t_verify = time.perf_counter()
+        verify = subprocess.Popen(cli("verify-skip", "--proof", str(proof_path), "--claims", str(claims_path)),
+                                  cwd=ROOT, stdout=verify_log, stderr=subprocess.STDOUT)
+        try:
+            t0 = time.perf_counter()
+            step_run = subprocess.run(cli("--profile-dir", str(trace_dir), "prove-step", "--validators", "32"),
+                                      cwd=ROOT, capture_output=True, text=True, timeout=600)
+            rec["profiled_step_s"] = time.perf_counter() - t0
+            verify.wait(timeout=900)
+            rec["verify_s"] = time.perf_counter() - t_verify
+        finally:
+            if verify.poll() is None:
+                verify.kill()
+                verify.wait()
+    assert step_run.returncode == 0, f"the profiled prove-step failed: {step_run.stderr[-3000:]}"
+    step_out = last_json(step_run.stdout)
+    traces = list(trace_dir.glob("*.pt.trace.json"))
+    rec["trace_bytes"] = sum(t.stat().st_size for t in traces)
+    log(f"  (d) profiled prove-step: {rec['profiled_step_s']:.3f} s of process, prove {step_out['wall_s']:.3f} s, "
+        f"ok {step_out['ok']}; {len(traces)} trace file(s), {rec['trace_bytes']} bytes")
+    assert step_out["ok"] and len(traces) == 1 and rec["trace_bytes"] > 0, "no profile trace was written"
+    shutil.rmtree(trace_dir)
+    verdict = last_json((work / "verify.log").read_text())
+    log(f"  (a) verify-skip --claims: rc {verify.returncode}, {json.dumps(verdict)} ({rec['verify_s']:.3f} s "
+        f"of process)")
+    assert verify.returncode == 0 and verdict["ok"] is True, "verify-skip rejected the resumed CLI's proof"
+    rec.update(verify=verdict, launches=launches)
+    log(json.dumps({"operator": rec}))
     return launches
 
 
@@ -1434,7 +1700,11 @@ def main() -> int:
             by_path["config5_full"] = config5_full(smi)
 
         with phase("[12] config 5 at the Ed25519 STARK tier on the card"):
-            by_path["config5_ed"] = config5_ed(w, smi, profile="--profile" in sys.argv[1:])
+            by_path["config5_ed"], ed_sha256 = config5_ed(w, smi, profile="--profile" in sys.argv[1:])
+
+        with phase("[13] the operator's surface on the card"):
+            log(f"  {smi}")
+            by_path["operator"] = operator_phase(w, ed_sha256, smi)
 
     with phase("[11] the NTT kernels at every shape the main paths launched (vs plain PyTorch, exact)"):
         check_recorded_ntt(np.random.default_rng(11), seen, rows)

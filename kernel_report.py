@@ -66,6 +66,8 @@ NTT_SHAPES = (
     (1 << 21, 32, False), (1 << 18, 32, True), (1 << 18, 20, True), (1 << 21, 2, True), (1 << 21, 16, False),
     (1 << 16, 8, False), (1 << 15, 1, False), (1 << 15, 3, True), (1 << 17, 5, False), (1 << 22, 8, False),
     (1 << 23, 4, False),
+    # the Ed25519 STARK's (config 5, 128 segments): trace chunk INTT and LDE, quotient coset INTT and LDE
+    (1 << 16, 128, True), (1 << 19, 128, False), (1 << 19, 2, True), (1 << 19, 16, False),
 )
 LONG_COUNT_SHAPE = (21, 32)  # (log n, columns) at which the long-column kernels' instructions are counted
 FOUR_STEP_LOG_N = 22  # config 4's polynomial: the twiddle-transpose at (2048, 2048) and the whole four-step

@@ -41,6 +41,17 @@ def test_ed_stark_modules_are_checked():
     assert {f"blobstreamx_tpu_torch/prover/{m}.py" for m in ED_MODULES} <= checked
 
 
+# the operator's surface (the CLI, its facades, checkpoints, retry, metrics, profiling, pipelining)
+OPERATOR_MODULES = ("__main__", "models/__init__", "models/skip", "models/step", "models/sha256_stark",
+                    "utils/checkpoint", "utils/failure", "utils/metrics", "utils/profiling", "utils/timing",
+                    "prover/overlap")
+
+
+def test_operator_modules_are_checked():
+    checked = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    assert {f"blobstreamx_tpu_torch/{m}.py" for m in OPERATOR_MODULES} <= checked
+
+
 @pytest.fixture(scope="module")
 def small_witness():
     chain = fx.generate_chain(seed=11, n_headers=12, n_validators=4, rotate_every=4,

@@ -1,9 +1,14 @@
 """The port's default-tier prove_skip and its prove_step on the CPU vs the
 JAX package, on the chain and config of tests/test_pipeline.py (the skip
 2 -> 10 and the step 9 -> 10): identical proof bytes, and each package's
-verifier accepts the other's proof and rejects tampered publics.
+verifier accepts the other's proof and rejects tampered publics. The
+skip's phase checkpoints (prove_skip(checkpoint_dir=...)) have the JAX
+package's layout, key and contents, each package resumes the other's
+consensus and trace to the other's proof bytes, and the closing metrics
+records agree.
 
-All JAX work (prove_skip, prove_step, the cross-verification, verify_step on
+All JAX work (prove_skip with its checkpoints and metrics, a second
+prove_skip resumed from the port's consensus and trace, prove_step, the cross-verification, verify_step on
 the step witness and on one with a flipped signature byte, and a signature
 batch with a flipped byte) runs in ONE 1-device subprocess
 (tests/subproc.py), which shares test_pipeline's compiled programs; the port
@@ -12,6 +17,9 @@ runs in-process."""
 import dataclasses
 import json
 import pickle
+import shutil
+
+import numpy as np
 
 import pytest
 import torch
@@ -27,6 +35,8 @@ from blobstreamx_tpu_torch.prover.serialize import (
     step_proof_from_bytes,
     step_proof_to_bytes,
 )
+from blobstreamx_tpu_torch.utils.metrics import MetricsWriter
+from chip_smoke import timing_names
 
 torch.set_num_threads(1)
 CFG = StarkConfig(rate_bits=2, cap_height=1, num_query_rounds=12, proof_of_work_bits=4, final_poly_len=4)
@@ -41,6 +51,7 @@ from blobstreamx_tpu.prover import pipeline
 from blobstreamx_tpu.prover.config import StarkConfig
 from blobstreamx_tpu.prover.serialize import (skip_proof_from_bytes, skip_proof_to_bytes,
                                              step_proof_from_bytes, step_proof_to_bytes)
+from blobstreamx_tpu.utils.metrics import MetricsWriter
 
 OUT = {out!r}
 CFG = StarkConfig(rate_bits=2, cap_height=1, num_query_rounds=12,
@@ -48,8 +59,11 @@ CFG = StarkConfig(rate_bits=2, cap_height=1, num_query_rounds=12,
 chain = fx.generate_chain(seed=11, n_headers=12, n_validators=4,
                           rotate_every=4, sign_fraction=0.75, sign_heights={{10}})
 w = wit.build_skip_witness(chain, trusted_height=2, target_height=10)
-proof = pipeline.prove_skip(w, CFG)
+proof = pipeline.prove_skip(w, CFG, checkpoint_dir=OUT + "/jax_ckpt",
+                            metrics=MetricsWriter(OUT + "/jax_metrics.jsonl"))
 open(OUT + "/jax.bin", "wb").write(skip_proof_to_bytes(proof))
+from_port = pipeline.prove_skip(w, CFG, checkpoint_dir=OUT + "/from_port")
+open(OUT + "/jax_from_port.bin", "wb").write(skip_proof_to_bytes(from_port))
 
 port = skip_proof_from_bytes(open(OUT + "/port.bin", "rb").read())
 pub = list(port.publics); pub[0] = pub[1]
@@ -61,6 +75,7 @@ res = {{
     "jax_accepts_tampered_port": pipeline.verify_skip_proof(dataclasses.replace(port, publics=pub), CFG),
     "jax_batch_valid": jed.batch_verify(items, streams=4)[0],
     "jax_batch_flipped": jed.batch_verify(flipped, streams=4)[0],
+    "jax_from_port_timing": from_port.timing,
 }}
 
 ws = jstep.build_step_witness(chain, prev_height={step_from})
@@ -80,6 +95,16 @@ json.dump(res, open(OUT + "/jax.json", "w"))
 """
 
 
+def _copy_phases(src, dst, phases):
+    """Copy the .npz/.json pairs of `phases` of the one run directory under
+    src into a run directory of the same name under dst."""
+    (run,) = src.iterdir()
+    (dst / run.name).mkdir(parents=True)
+    for ph in phases:
+        for ext in ("npz", "json"):
+            shutil.copy(run / f"{ph}.{ext}", dst / run.name / f"{ph}.{ext}")
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     from subproc import run_py
@@ -89,8 +114,10 @@ def runs(tmp_path_factory):
         seed=11, n_headers=12, n_validators=4, rotate_every=4, sign_fraction=0.75, sign_heights={10}
     )
     w = wit.build_skip_witness(chain, trusted_height=2, target_height=10)
-    proof = pipeline.prove_skip(w, CFG, device="cpu")
+    proof = pipeline.prove_skip(w, CFG, device="cpu", checkpoint_dir=str(out / "port_ckpt"),
+                                metrics=MetricsWriter(str(out / "port_metrics.jsonl")))
     (out / "port.bin").write_bytes(skip_proof_to_bytes(proof))
+    _copy_phases(out / "port_ckpt", out / "from_port", ("consensus", "trace"))
     ws = step.build_step_witness(chain, prev_height=STEP_FROM)
     step_proof = pipeline.prove_step(ws, CFG, device="cpu")
     (out / "port_step.bin").write_bytes(step_proof_to_bytes(step_proof))
@@ -98,6 +125,7 @@ def runs(tmp_path_factory):
     # the pickle was written by this test's own subprocess above
     carried = wit.step_witness_from_reference(pickle.loads((out / "jax_step_witness.pkl").read_bytes()))
     return dict(
+        out=out,
         witness=w,
         port=proof,
         port_bytes=(out / "port.bin").read_bytes(),
@@ -227,3 +255,51 @@ def test_verify_step_matches_jax(runs):
         got[name] = [r.ok, r.reasons]
     assert got == runs["jax"]["jax_verify_step"]
     assert got["valid"] == [True, []] and got["flipped_signature"][0] is False
+
+
+def test_checkpoint_dirs_equal_jax(runs):
+    """The port's checkpoint directory for the skip 2 -> 10 has the JAX
+    package's run name (the key), phase files, arrays and JSON scalars."""
+    (port_run,) = (runs["out"] / "port_ckpt").iterdir()
+    (jax_run,) = (runs["out"] / "jax_ckpt").iterdir()
+    assert port_run.name == jax_run.name and port_run.name.startswith("skip-")
+    files = sorted(p.name for p in port_run.iterdir())
+    assert files == sorted(p.name for p in jax_run.iterdir())
+    assert files == sorted(f"{ph}.{ext}" for ph in ("consensus", "trace", "stark") for ext in ("npz", "json"))
+    for ph in ("consensus", "trace", "stark"):
+        assert json.loads((port_run / f"{ph}.json").read_text()) == json.loads((jax_run / f"{ph}.json").read_text())
+        with np.load(port_run / f"{ph}.npz") as got, np.load(jax_run / f"{ph}.npz") as want:
+            assert sorted(got.files) == sorted(want.files)
+            for k in want.files:
+                assert got[k].dtype == want[k].dtype and np.array_equal(got[k], want[k]), (ph, k)
+
+
+def test_port_resumes_jax_checkpoint(runs, tmp_path):
+    """The port, given only the JAX package's consensus and trace phases,
+    proves the rest to the JAX package's bytes."""
+    _copy_phases(runs["out"] / "jax_ckpt", tmp_path, ("consensus", "trace"))
+    proof = pipeline.prove_skip(runs["witness"], CFG, device="cpu", checkpoint_dir=str(tmp_path))
+    assert "consensus+trace resumed from checkpoint" in timing_names(proof.timing)
+    assert "stark resumed from checkpoint" not in timing_names(proof.timing)
+    assert skip_proof_to_bytes(proof) == runs["jax_bytes"]
+
+
+def test_jax_resumes_port_checkpoint(runs):
+    """The JAX package, given only the port's consensus and trace phases,
+    proves the rest to the port's bytes."""
+    assert "consensus+trace resumed from checkpoint" in timing_names(runs["jax"]["jax_from_port_timing"])
+    assert (runs["out"] / "jax_from_port.bin").read_bytes() == runs["port_bytes"]
+
+
+def test_metrics_records_match_jax(runs):
+    (got,) = [json.loads(line) for line in (runs["out"] / "port_metrics.jsonl").read_text().splitlines()]
+    (want,) = [json.loads(line) for line in (runs["out"] / "jax_metrics.jsonl").read_text().splitlines()]
+    assert list(got) == list(want) and got["event"] == want["event"] == "timing"
+    for k in ("n_headers", "n_validators", "n_rows"):
+        assert got[k] == want[k], k
+
+    def top(phases):
+        return [k for k in phases if k.count("/") == 1]
+
+    assert top(got["phases"]) == top(want["phases"]) == ["prove_skip/consensus", "prove_skip/trace",
+                                                         "prove_skip/stark"]

@@ -2,7 +2,9 @@
 the JAX package on the CPU: the port's verifier reports "ok: tuple tree",
 the JAX verifier accepts the port's blob, both packages serialize the proof
 to equal bytes, and both verifiers reject the three tampers that
-chip_smoke.py's phase 8 applies on the card. The chain is the smallest one:
+chip_smoke.py's phase 8 applies on the card, and a prove resumed from the
+fixture's phase checkpoints (the whole SHA STARK loaded, or all but the
+main STARK) gives the same bytes. The chain is the smallest one:
 one leaf (trusted 9 -> target 10 of test_pipeline's fixture), a 128-row
 SHA STARK; the main and the SHA STARK share the config below.
 
@@ -11,6 +13,7 @@ a two-leaf chain, the JAX side in one 1-device subprocess."""
 
 import dataclasses
 import json
+import shutil
 
 import pytest
 import torch
@@ -18,9 +21,9 @@ import torch
 from blobstreamx_tpu.prover import pipeline as jax_pipeline, serialize as jax_serialize
 from blobstreamx_tpu.prover.config import StarkConfig as JaxStarkConfig
 from blobstreamx_tpu_torch.circuits import fixtures as fx, witness as wit
-from blobstreamx_tpu_torch.prover import pipeline, serialize
+from blobstreamx_tpu_torch.prover import pipeline, serialize, stark, stark_stream
 from blobstreamx_tpu_torch.prover.config import StarkConfig
-from chip_smoke import sha_tamper
+from chip_smoke import sha_tamper, timing_names
 
 torch.set_num_threads(1)
 CFG_FIELDS = dict(rate_bits=2, cap_height=1, num_query_rounds=4, proof_of_work_bits=4, final_poly_len=4)
@@ -36,10 +39,50 @@ def _witness(trusted: int, target: int):
 
 
 @pytest.fixture(scope="module")
-def run():
+def run(tmp_path_factory):
     w = _witness(9, 10)
-    proof = pipeline.prove_skip(w, CFG, device="cpu", with_sha_stark=True)
-    return dict(witness=w, proof=proof, blob=serialize.skip_proof_to_bytes(proof))
+    ckpt = tmp_path_factory.mktemp("sha_ckpt")
+    proof = pipeline.prove_skip(w, CFG, device="cpu", checkpoint_dir=str(ckpt), with_sha_stark=True)
+    return dict(witness=w, proof=proof, blob=serialize.skip_proof_to_bytes(proof), ckpt=ckpt)
+
+
+def _resume(run, ckpt, monkeypatch):
+    """prove_skip from `ckpt` with no aux STARK allowed to be proven: returns
+    (proof bytes, its TimingTree's node names, the AIRs stark.prove proved)."""
+    def no_aux(*a, **k):
+        raise AssertionError("an aux STARK was proven again")
+
+    proves = []
+    orig = stark.prove
+
+    def counting(air, *a, **k):
+        proves.append(type(air).__name__)
+        return orig(air, *a, **k)
+
+    monkeypatch.setattr(stark_stream, "prove_auto", no_aux)
+    monkeypatch.setattr(stark, "prove", counting)
+    proof = pipeline.prove_skip(run["witness"], CFG, device="cpu", checkpoint_dir=str(ckpt), with_sha_stark=True)
+    return serialize.skip_proof_to_bytes(proof), timing_names(proof.timing), proves
+
+
+def test_resume_loads_the_whole_sha_stark(run, monkeypatch):
+    blob, names, proves = _resume(run, run["ckpt"], monkeypatch)
+    assert {"consensus+trace resumed from checkpoint", "sha_stark resumed from checkpoint",
+            "stark resumed from checkpoint"} <= set(names)
+    assert proves == []
+    assert blob == run["blob"]
+
+
+def test_resume_proves_only_the_main_stark(run, tmp_path, monkeypatch):
+    shutil.copytree(run["ckpt"], tmp_path, dirs_exist_ok=True)
+    (run_dir,) = tmp_path.iterdir()
+    for ext in ("npz", "json"):
+        (run_dir / f"stark.{ext}").unlink()
+    blob, names, proves = _resume(run, tmp_path, monkeypatch)
+    assert {"consensus+trace resumed from checkpoint", "sha_stark resumed from checkpoint"} <= set(names)
+    assert "stark resumed from checkpoint" not in names
+    assert proves == ["SkipAir"]
+    assert blob == run["blob"]
 
 
 def test_port_verifier_accepts_tuple_tree(run):
