@@ -16,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from blobstreamx_tpu_torch.device import resolve
 from blobstreamx_tpu_torch.golden import encoding as enc
 from blobstreamx_tpu_torch.ops import sha256 as sha_ops
 
@@ -47,6 +48,14 @@ def pack_validator_leaves(validators: list[tuple[bytes, int]]):
 def leaf_and_root(blocks, n_blocks):
     """Leaf digests of packed validator messages, reduced to the set root."""
     return simple_root_from_digests(sha_ops.sha256_packed(blocks, n_blocks))
+
+
+def validators_root_device(validators: list[tuple[bytes, int]], device=None):
+    """The whole validators hash on `device` (default: the card): leaf lanes
+    and the tree reduction. Returns (8, 1) words."""
+    device = resolve(device)
+    blocks, n_blocks = pack_validator_leaves(validators)
+    return leaf_and_root(sha_ops.to_device(blocks, device), sha_ops.to_device(n_blocks, device))
 
 
 # ----------------------------------------------------------------------------

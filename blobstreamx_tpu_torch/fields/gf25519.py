@@ -139,6 +139,10 @@ def sub(a, b):
     return _fold_overflow(words, over)
 
 
+def neg(a):
+    return sub(torch.zeros_like(a), a)
+
+
 def mul(a, b):
     # exact partial products: (16, 16, N); p[i, j] = a[i] * b[j]
     p = a[:, None, :] * b[None, :, :]
@@ -156,6 +160,13 @@ def mul(a, b):
     over_hi = ph[NLIMB - 1] >> 16  # weight 2^256
     words2, carry = _propagate(cols2)
     return _fold_overflow(words2, carry + over_hi)
+
+
+def mul_small(a, k: int):
+    """a * k for a small static constant 0 < k < 2^15 (one carry pass)."""
+    assert 0 < k < (1 << 15)
+    words, over = _propagate(a * k)
+    return _fold_overflow(words, over)
 
 
 def canonicalize(x):
@@ -188,6 +199,19 @@ def select(mask, a, b):
 # ----------------------------------------------------------------------------
 # power chains (the power-chain kernel on CUDA tensors)
 # ----------------------------------------------------------------------------
+
+
+def pow_static(a, e: int):
+    """a^e for a static Python-int exponent by generic square-and-multiply
+    over its bits (least significant first); pow22523 and inv use addition
+    chains instead."""
+    result = full(a.shape[1], 1, a.device).contiguous()
+    base = a
+    for i in range(max(e.bit_length(), 1)):
+        if (e >> i) & 1:
+            result = mul(result, base)
+        base = mul(base, base)
+    return result
 
 
 def sqn_plain(a, k: int):

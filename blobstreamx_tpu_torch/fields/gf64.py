@@ -143,6 +143,33 @@ def gl_square(a: Gl) -> Gl:
     return gl_mul(a, a)
 
 
+def gl_mul_pow2(a: Gl, k: int) -> Gl:
+    """a * 2^k mod p for a static 0 <= k < 32: the top k bits t of the
+    shifted value weigh t*2^64 ≡ t*(2^32 - 1)."""
+    assert 0 <= k < 32
+    if k == 0:
+        return a
+    t = a[1] >> (32 - k)
+    hi = ((a[1] << k) | (a[0] >> (32 - k))) & M32
+    lo = (a[0] << k) & M32
+    return _fold(lo - t, hi + t)
+
+
+def gl_pow(a: Gl, e: int) -> Gl:
+    """a^e for a static Python-int exponent, by square-and-multiply over its
+    bits (least significant first)."""
+    assert e >= 0
+    result = full(a[0].shape, 1, a[0].device)
+    base = a
+    while e:
+        if e & 1:
+            result = gl_mul(result, base)
+        e >>= 1
+        if e:
+            base = gl_square(base)
+    return result
+
+
 def _sq_k(x: Gl, k: int) -> Gl:
     for _ in range(k):
         x = gl_square(x)
@@ -163,6 +190,14 @@ def gl_inv(a: Gl) -> Gl:
     t31 = gl_mul(gl_square(t30), a)         # a^(2^31 - 1)
     t32 = gl_mul(gl_square(t31), a)         # a^(2^32 - 1)
     return gl_mul(_sq_k(t31, 33), t32)      # a^((2^31-1)·2^33 + 2^32 - 1)
+
+
+def gl_select(mask, a: Gl, b: Gl) -> Gl:
+    return torch.where(mask, a[0], b[0]), torch.where(mask, a[1], b[1])
+
+
+def gl_eq(a: Gl, b: Gl):
+    return (a[0] == b[0]) & (a[1] == b[1])
 
 
 # ----------------------------------------------------------------------------
@@ -195,12 +230,35 @@ def ext_square(a):
     return ext_mul(a, a)
 
 
+def ext_zeros(shape, device=None):
+    return zeros(shape, device), zeros(shape, device)
+
+
 def ext_full(shape, v: tuple[int, int], device=None):
     return full(shape, v[0], device), full(shape, v[1], device)
 
 
+def ext_scale(base: Gl, k: tuple[int, int]):
+    """Multiply a base-field array by a static ext constant: (k0*b, k1*b)."""
+    shape, dev = base[0].shape, base[0].device
+    return gl_mul(base, full(shape, k[0], dev)), gl_mul(base, full(shape, k[1], dev))
+
+
+def ext_scale_ext(a, k: tuple[int, int]):
+    """Multiply an ext array by a static ext constant."""
+    return ext_mul(a, ext_full(a[0][0].shape, k, a[0][0].device))
+
+
 def ext_from_base(base: Gl):
     return base, zeros(base[0].shape, base[0].device)
+
+
+def ext_neg(a):
+    return gl_neg(a[0]), gl_neg(a[1])
+
+
+def ext_select(mask, a, b):
+    return gl_select(mask, a[0], b[0]), gl_select(mask, a[1], b[1])
 
 
 def ext_inv(a):

@@ -6,7 +6,7 @@ twisted-Edwards formula (a = -1 is a square mod p, d is a non-square, so one
 formula handles generic adds, doublings and the identity with no branches).
 
 ``add`` is the plain version; ``add_fused`` is the entry point the MSM
-calls: on CUDA tensors it launches the Edwards-add kernel
+and ``double`` call: on CUDA tensors it launches the Edwards-add kernel
 (csrc/ed25519.cu), whose outputs are canonical; on CPU tensors it runs
 ``add``. The two agree as field values.
 
@@ -87,8 +87,37 @@ def add_fused(p: Point, q: Point) -> Point:
     return add(p, q)
 
 
+def double(p: Point) -> Point:
+    """2p by the complete addition law, add_fused(p, p): one Edwards-add
+    launch on CUDA tensors."""
+    return add_fused(p, p)
+
+
+def neg(p: Point) -> Point:
+    return (f.neg(p[0]), p[1], p[2], f.neg(p[3]))
+
+
 def select(mask, p: Point, q: Point) -> Point:
     return tuple(f.select(mask, a, b) for a, b in zip(p, q))
+
+
+def equal(p: Point, q: Point):
+    """Projective equality mask (N,): X1Z2 == X2Z1 and Y1Z2 == Y2Z1."""
+    ex = f.eq(f.mul(p[0], q[2]), f.mul(q[0], p[2]))
+    ey = f.eq(f.mul(p[1], q[2]), f.mul(q[1], p[2]))
+    return ex & ey
+
+
+def is_identity(p: Point):
+    return equal(p, identity(p[0].shape[1], p[0].device))
+
+
+def on_curve(p: Point):
+    """-x^2 + y^2 == z^2 + d*t^2  and  x*y == z*t (extended-coords invariants)."""
+    x, y, z, t = p
+    lhs = f.sub(f.mul(y, y), f.mul(x, x))
+    rhs = f.add(f.mul(z, z), f.mul(f.full(x.shape[1], D, x.device), f.mul(t, t)))
+    return f.eq(lhs, rhs) & f.eq(f.mul(x, y), f.mul(z, t))
 
 
 # ----------------------------------------------------------------------------

@@ -12,12 +12,20 @@ step performs one vectorized complete-Edwards addition across
   - merge the K stream copies (a compacting pairwise tree, log K adds)
   - per-window weighted bucket reduction sum_b b*S_b via a reversed
     Hillis-Steele suffix scan (c batched adds) + a compacting tree
-  - window combine by Horner on the host (W points of bigint work)
+  - window combine by Horner, either on the device (``combine_windows``:
+    c doublings and one add a window on one lane, ``msm``) or on the host
+    (``combine_windows_host``: W points of bigint work, ``msm_host_combined``)
 
 Buckets are identity-initialized; digit-0 entries land in bucket 0, which
 the weighted reduction excludes, so padding points with digit 0 is free.
+
+The bitwise MSM (c = 1, ``msm_bitwise_windows_device``) needs no buckets:
+window w's sum is a masked tree sum of the points whose bit w is set, so it
+does no gather and no scatter, at four times the additions of c = 4 and a
+power-of-two point count.
+
 Every point addition goes through ``curve25519.add_fused`` (the Edwards-add
-kernel on the card).
+kernel on the card, one launch each).
 """
 
 from __future__ import annotations
@@ -26,6 +34,9 @@ import numpy as np
 import torch
 
 from blobstreamx_tpu_torch.ops import curve25519 as curve
+
+WINDOW_BITS = 8
+NUM_WINDOWS = 32  # ceil(256 / 8)
 
 # Batch-verify defaults: narrow windows and a moderate stream count keep the
 # number of sequential point additions low.
@@ -40,7 +51,7 @@ def fast_streams(device) -> int:
     return FAST_STREAMS if torch.device(device).type == "cuda" else 4
 
 
-def scalars_to_digits(scalars: list[int], c: int) -> np.ndarray:
+def scalars_to_digits(scalars: list[int], c: int = WINDOW_BITS) -> np.ndarray:
     """(W, N) uint32 digit matrix, digit[w, i] = (s_i >> (c*w)) & (2^c - 1)."""
     w = -(-256 // c)
     out = np.zeros((w, len(scalars)), dtype=np.uint32)
@@ -51,12 +62,34 @@ def scalars_to_digits(scalars: list[int], c: int) -> np.ndarray:
     return out
 
 
+def _index_tensor(x, dev) -> torch.Tensor:
+    """A host digit matrix (numpy) or a tensor, as an int64 tensor on `dev`."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=dev, dtype=torch.int64)
+    return torch.from_numpy(np.asarray(x).astype(np.int64)).to(dev)
+
+
 def _gather_point(p: curve.Point, idx) -> curve.Point:
     return tuple(c.index_select(1, idx) for c in p)
 
 
 def _scatter_set(dst: curve.Point, idx, src: curve.Point) -> curve.Point:
     return tuple(d.index_copy(1, idx, s) for d, s in zip(dst, src))
+
+
+def pad_to_streams(points: curve.Point, digits, streams: int = 16):
+    """Pad (points, digits) with identity/digit-0 lanes to a multiple of the
+    stream count (digit-0 padding is free: bucket 0 is never reduced).
+    Returns the points and the digits as a tensor on the points' device."""
+    dev = points[0].device
+    digits = _index_tensor(digits, dev)
+    w, n = digits.shape
+    pad = (-n) % streams
+    if pad:
+        idn = curve.identity(pad, dev)
+        points = tuple(torch.cat([a, b], dim=1) for a, b in zip(points, idn))
+        digits = torch.cat([digits, torch.zeros((w, pad), dtype=torch.int64, device=dev)], dim=1)
+    return points, digits
 
 
 def fold_group_sums(p: curve.Point, group: int) -> curve.Point:
@@ -78,7 +111,7 @@ def fold_group_sums(p: curve.Point, group: int) -> curve.Point:
     return tuple(c.reshape(16, n_groups) for c in x)
 
 
-def accumulate_buckets(points: curve.Point, digits, streams: int, c: int) -> curve.Point:
+def accumulate_buckets(points: curve.Point, digits, streams: int = 16, c: int = WINDOW_BITS) -> curve.Point:
     """Bucket accumulation. points: (16, N) coords; digits: (W, N) tensor, N
     a multiple of `streams`.
 
@@ -110,7 +143,7 @@ def accumulate_buckets(points: curve.Point, digits, streams: int, c: int) -> cur
     return fold_group_sums(buckets, k)  # (16, W*B)
 
 
-def reduce_buckets(buckets: curve.Point, w: int, c: int) -> curve.Point:
+def reduce_buckets(buckets: curve.Point, w: int = NUM_WINDOWS, c: int = WINDOW_BITS) -> curve.Point:
     """Per-window weighted sum sum_b b * S_b -> (16, W) window results.
 
     Suffix sums U_j = sum_{b>=j} S_b via a reversed Hillis-Steele scan
@@ -132,6 +165,40 @@ def reduce_buckets(buckets: curve.Point, w: int, c: int) -> curve.Point:
     return fold_group_sums(suf, b)  # (16, W)
 
 
+def combine_windows(windows: curve.Point, c: int = WINDOW_BITS) -> curve.Point:
+    """Horner on the device: result = sum_w 2^(c*w) W_w from the top window,
+    c doublings and one add a window on one lane. Returns a (16, 1) point."""
+    acc = curve.identity(1, windows[0].device)
+    for j in reversed(range(windows[0].shape[1])):
+        for _ in range(c):
+            acc = curve.double(acc)
+        acc = curve.add_fused(acc, tuple(x[:, j : j + 1] for x in windows))
+    return acc
+
+
+def msm(points: curve.Point, digits, streams: int = 16, c: int = WINDOW_BITS) -> curve.Point:
+    """Full Pippenger MSM with the device combine: returns the (16, 1)-lane
+    result point. digits: (W, N) tensor, N a multiple of `streams`."""
+    w = digits.shape[0]
+    buckets = accumulate_buckets(points, digits, streams=streams, c=c)
+    windows = reduce_buckets(buckets, w, c=c)
+    return combine_windows(windows, c=c)
+
+
+def msm_windows(points: curve.Point, digits, c: int = FAST_WINDOW_BITS, streams: int | None = None):
+    """Device Pippenger up to the per-window results, stacked (4, 16, W)."""
+    streams = fast_streams(points[0].device) if streams is None else streams
+    points, digits = pad_to_streams(points, digits, streams=streams)
+    buckets = accumulate_buckets(points, digits, streams=streams, c=c)
+    return torch.stack(reduce_buckets(buckets, digits.shape[0], c=c))
+
+
+def msm_host_combined(points: curve.Point, digits, c: int = FAST_WINDOW_BITS, streams: int | None = None):
+    """Full MSM: device buckets and windows, host combine. Returns host
+    extended coordinates (x, y, z, t) as python ints."""
+    return combine_windows_host(msm_windows(points, digits, c, streams), c)
+
+
 def combine_windows_host(windows, c: int):
     """Host Horner over the (4, 16, W) window points: returns the extended-
     coordinate result as python ints (x, y, z, t)."""
@@ -148,3 +215,49 @@ def combine_windows_host(windows, c: int):
                 acc = gold.point_add(acc, acc)
         acc = gold.point_add(acc, tuple(coords[i][j] % gold.Q for i in range(4)))
     return acc
+
+
+# ---------------------------------------------------------------------------
+# bitwise-window MSM (c = 1): no buckets, no gathers, no scatters
+# ---------------------------------------------------------------------------
+
+
+def msm_bitwise_windows_device(points: curve.Point, bits) -> curve.Point:
+    """All W window sums at once. points: (16, N) coords; bits: (W, N) 0/1
+    tensor (scalars_to_digits with c=1), N a power of two >= 2. Level 0
+    selects point or identity for each (window, lane) and adds the two
+    halves; fold_group_sums does the rest. Returns (16, W): lane w = T_w."""
+    w, n = bits.shape
+    assert n & (n - 1) == 0 and n >= 2, n
+    h = n // 2
+    dev = points[0].device
+    idn = curve.identity(w * h, dev)
+
+    def masked_half(sel, pts):
+        flat = tuple(c[:, None, :].expand(16, w, h).reshape(16, w * h) for c in pts)
+        return curve.select(sel.reshape(-1) != 0, flat, idn)
+
+    a = masked_half(bits[:, :h], tuple(c[:, :h] for c in points))
+    b = masked_half(bits[:, h:], tuple(c[:, h:] for c in points))
+    return fold_group_sums(curve.add_fused(a, b), h)  # (16, w)
+
+
+def pad_points_bits_pow2(points: curve.Point, bits):
+    """Identity/zero-bit pad N up to the next power of two (>= 2). Returns the
+    points and the bits as a tensor on the points' device."""
+    dev = points[0].device
+    bits = _index_tensor(bits, dev)
+    w, n = bits.shape
+    n2 = max(2, 1 << (n - 1).bit_length())
+    if n2 != n:
+        idn = curve.identity(n2 - n, dev)
+        points = tuple(torch.cat([a, b], dim=1) for a, b in zip(points, idn))
+        bits = torch.cat([bits, torch.zeros((w, n2 - n), dtype=torch.int64, device=dev)], dim=1)
+    return points, bits
+
+
+def msm_bitwise_host_combined(points: curve.Point, scalars: list[int]):
+    """Full MSM via bitwise windows and the host Horner (c=1: W doublings and
+    adds of host bigint work). Returns extended coords as python ints."""
+    points, bits = pad_points_bits_pow2(points, scalars_to_digits(scalars, c=1))
+    return combine_windows_host(torch.stack(msm_bitwise_windows_device(points, bits)), 1)

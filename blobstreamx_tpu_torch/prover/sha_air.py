@@ -49,6 +49,7 @@ from functools import lru_cache
 
 import numpy as np
 
+from blobstreamx_tpu_torch import native
 from blobstreamx_tpu_torch.golden import goldilocks as gold
 from blobstreamx_tpu_torch.golden import sha256 as gsha
 
@@ -528,13 +529,21 @@ def _compress_vec(hin: np.ndarray, w: np.ndarray):
 
 
 def build_sha_trace(chain: tuple[bool, ...], blocks: list[bytes]):
-    """Execution trace + aux claims for the given block layout, vectorized
-    in numpy over the blocks (the JAX package's numpy builder; its native C
-    builder is not ported). The scalar build_sha_trace_ref is the
-    independent oracle.
+    """Execution trace + aux claims for the given block layout, filled by
+    the native C builder (blobstreamx_tpu_torch.native, built at first use;
+    a failed build raises). _build_sha_trace_numpy is its plain version and
+    the scalar build_sha_trace_ref the independent oracle.
 
     Returns (trace (64*n_blocks, N_COLS) uint64, aux list of
     (w_words[16], out_words[8]) per block)."""
+    assert len(blocks) == len(chain)
+    return native.sha_trace_fill(chain, blocks)
+
+
+def _build_sha_trace_numpy(chain: tuple[bool, ...], blocks: list[bytes]):
+    """Vectorized numpy trace builder over the blocks: the plain version the
+    native builder is held to (tests, chip_smoke.py); the main path does not
+    call it."""
     assert len(blocks) == len(chain)
     B = len(blocks)
     n = ROUNDS * B

@@ -23,8 +23,10 @@ such as validator lists and part-set fields) or from digests CLAIMED for
 earlier messages; it performs no hashing itself. Canonical-padding checks
 on every block close padding malleability.
 
-The prover hashes on the host with hashlib (golden.sha256); the proofs equal
-the JAX package's for the same witness and config.
+The prover hashes on the host with hashlib (golden.sha256), where the JAX
+package calls its native library: hashlib times faster than the native
+sha256 through ctypes (chip_smoke.py phase 14), and the proofs equal the
+JAX package's for the same witness and config.
 """
 
 from __future__ import annotations

@@ -12,7 +12,9 @@ result):
 
   1. the card's name and power limit (nvidia-smi);
   2. the kernel build: one nvcc per csrc/*.cu, started together, into
-     build/kernels/;
+     build/kernels/; then the native host runtime (native/bsx_sha256.c, cc)
+     into build/native/, which fills every SHA-STARK trace of phases 4, 8
+     and 10;
   3. a kernel check per kernel: the kernel against its plain PyTorch version
      on the same seeded inputs (values near p, near 2^32 and 2^256, random
      valid curve points) at the main paths' shapes, among them Poseidon at
@@ -152,6 +154,24 @@ result):
      through the CLI writes a non-empty Chrome trace (verify-skip of (a)
      runs beside it). Each part's wall, the checkpoint directory's bytes,
      the card's name and power limit. One JSON line {"operator": {...}}.
+ 14. the single-card remainder (after phase 13; single_card_phase): (a)
+     the native host runtime at config 5's scale: the SHA tier's trace
+     (4096 blocks, 2^18 x 1300) filled in C and by the numpy builder, equal
+     word for word with equal aux lists, both times; tuple_root over the
+     1023 tuples == the golden data commitment; sha256_many == hashlib; the
+     full tier's message enumeration at 1024 headers hashed by hashlib (the
+     main path) and by the native library, three times each, alternately;
+     (b) at config 5's 32 signatures (65 points) and config 3's 256 (513
+     points; a chain of 256 validators, 1 -> 2): batch_verify (True on
+     the batch, False with one message changed) and the three MSMs (msm with the device Horner,
+     msm_host_combined, msm_bitwise_host_combined) over the batch's points
+     and seeded random scalars, each equal to the golden group law; a cold
+     call, then a warm one with its wall and its edwards_add and pow_chain
+     launches (their sum is the path "single_card", each must be > 0); (c)
+     validators_root_device over config 5's and config 3's validator sets
+     == the host's root. Phase 8's and phase 10's proofs must keep their
+     SHA-256s (SHA_TIER_PROOF_SHA256, FULL_192_PROOF_SHA256), and both
+     print their "trace (host)" nodes. One JSON line {"single_card": {...}}.
  11. every (n, columns, direction) that the NTT kernels were launched at in
      phases 4-10, 12 and 13 and phase 3 did not check (recorded at the
      kernel's wrapper while the paths ran), held against the plain version
@@ -160,10 +180,11 @@ result):
 Each phase prints its wall time. Each path has its own list of kernels that
 must launch. Before the last line come {"config5": ...}, {"config4": ...},
 {"config5_sha": ...}, {"step": ...}, {"config5_full": ...},
-{"config5_ed": ...}, {"operator": ...} and {"kernels": [...]}, where each
-kernel's "launches" is from the warm run of its own path ("path") and
-"launches_by_path" has all seven (the step path's from the 256-validator
-warm prove; "operator" counts phase 13's in-process proves, (b) and (c));
+{"config5_ed": ...}, {"operator": ...}, {"single_card": ...} and
+{"kernels": [...]}, where each kernel's "launches" is from the warm run of
+its own path ("path") and "launches_by_path" has all eight (the step
+path's from the 256-validator warm prove; "operator" counts phase 13's
+in-process proves, (b) and (c); "single_card" phase 14's warm calls);
 the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -212,6 +233,8 @@ PATH_KERNELS = {
     "config5_ed": ("ntt", "ntt_multi", "poseidon", "edwards_add", "pow_chain"),
     # phase 13's in-process part: the retried SkipAir STARK and the pipelined default-tier proves
     "operator": ("ntt", "poseidon", "edwards_add", "pow_chain"),
+    # phase 14's warm batch verifications and MSM variants
+    "single_card": ("edwards_add", "pow_chain"),
 }
 # phase 13: the CLI's prove-skip at config 5's Ed tier (the chain of phase 5), and three pipelined
 # default-tier proves at config 5's width, on one chain signed at each target
@@ -231,6 +254,10 @@ TINY_FULL_PROOF_SHA256 = "bb54aad55410b55b278f68687e54041f092ef87be1a35d9ec14ab5
 # STARK) under TINY_CFG: the CPU's bytes, which the JAX package's verifier accepts
 # (tests/test_torch_ed_tier.py, slow)
 TINY_ED_PROOF_SHA256 = "d43cd486407439988a3c28cc613130092ffee5173bafd1dbd262ff506d4f24ff"
+# SHA-256 of config 5's SHA-tier proof (phase 8) and of its full tier cut to 192 headers (phase 10): the
+# card's bytes from the numpy trace builder, which the native trace fill must keep
+SHA_TIER_PROOF_SHA256 = "8f1862e2b3960ec17ce1688b5a715ab0c0b7237c14186df925ee915e289982dc"
+FULL_192_PROOF_SHA256 = "ba3d67a8005c5aa5a99becdd5b3a44a87e33c21dd976351e87bb9830a178fe77"
 ED_SEGMENTS = 128  # config 5: 32 signatures, 2 * 32 + 1 scalar multiplications, padded
 CUTOVER_FIT_ROWS = (1 << 12, 1 << 13, 1 << 14)  # Sha256Air traces through stark.prove
 CUTOVER_MEMORY_SHARE = 0.85  # of the card's memory, the most the fit may predict at the cutover
@@ -699,6 +726,11 @@ def small_chain_card_vs_cpu():
     assert digest == TINY_ED_PROOF_SHA256, "the card's Ed-tier proof differs from the CPU's (its SHA-256)"
 
 
+def trace_host_nodes(timing: str) -> list[str]:
+    """The "trace (host)" lines of a rendered TimingTree, stripped."""
+    return [line.strip() for line in timing.splitlines() if line.strip().endswith("trace (host)")]
+
+
 def warm_run(prove):
     """One warm run of a prove on the card: (result, wall s, kernel
     launches, peak device memory, what was resident before it)."""
@@ -1047,7 +1079,9 @@ def config5_sha(w, smi: str, profile: bool):
     blob = skip_proof_to_bytes(warm)
     digest = hashlib.sha256(blob).hexdigest()
     log(f"  warm proof: {len(blob)} bytes, SHA-256 {digest}")
+    log(f"  trace (host) nodes (native trace fill): {trace_host_nodes(warm.timing)}")
     assert blob == skip_proof_to_bytes(cold), "warm and cold SHA-tier proofs differ"
+    assert digest == SHA_TIER_PROOF_SHA256, "the SHA-tier proof's bytes changed (its SHA-256)"
     del cold, blob
 
     t0 = time.perf_counter()
@@ -1126,7 +1160,7 @@ def step_phase(chain5, smi: str):
     """Phase 9: prove_step at config 5's shape (phase 5's chain, 1023 ->
     1024, 32 validators) and at config 3's signature count (a two-header
     chain of 256 validators, all signing, 1 -> 2). Returns the wide case's
-    warm launches."""
+    warm launches and its chain."""
     from blobstreamx_tpu_torch.circuits import fixtures as fx
 
     rec = {"config5_shape": step_case("config 5's chain", chain5, CONFIG5["target"] - 1)}
@@ -1139,7 +1173,7 @@ def step_phase(chain5, smi: str):
     rec["wide"] = dict(step_case(f"{c['n_validators']}-validator chain", chain, c["prev_height"]),
                        chain_s=chain_s)
     log(json.dumps({"step": dict(rec, card=smi)}))
-    return rec["wide"]["launches"]
+    return rec["wide"]["launches"], chain
 
 
 def config5_full(smi: str):
@@ -1186,7 +1220,9 @@ def config5_full(smi: str):
     digest = hashlib.sha256(blob).hexdigest()
     round_trip = skip_proof_to_bytes(skip_proof_from_bytes(blob)) == blob
     log(f"  proof: {len(blob)} bytes, SHA-256 {digest}, serializer round trip equal: {round_trip}")
+    log(f"  trace (host) nodes (native trace fill): {trace_host_nodes(proof.timing)}")
     assert round_trip, "the full-tier proof does not survive a serializer round trip"
+    assert digest == FULL_192_PROOF_SHA256, "the 192-header full-tier proof's bytes changed (its SHA-256)"
 
     t0 = time.perf_counter()
     ok, detail = pipeline.verify_skip_proof_detailed(proof)
@@ -1627,6 +1663,175 @@ def profile_warm(what: str, run, spans=()):
     return result
 
 
+# ----------------------------------------------------------------------------
+# phase 14: the single-card remainder
+# ----------------------------------------------------------------------------
+
+
+def native_runtime(w) -> dict:
+    """Phase 14 (a): the native host runtime against its plain versions at
+    config 5's scale."""
+    import numpy as np
+
+    from blobstreamx_tpu_torch import native
+    from blobstreamx_tpu_torch.golden import merkle as gmerkle, sha256 as gsha
+    from blobstreamx_tpu_torch.prover import sha_air, sha_claims, skip_claims
+
+    t0 = time.perf_counter()
+    lib = native.build()
+    build_s = time.perf_counter() - t0
+    log(f"  native library {lib.relative_to(ROOT)} built (or found) in {build_s:.3f} s, loaded from "
+        f"{Path(native.loaded_path()).relative_to(ROOT)}")
+    heights = [int(h) for h in w.range_heights]
+    messages, root = sha_claims.tuple_tree_messages(heights, w.range_data_hashes)
+    chain, blocks = sha_air.plan_blocks(messages)
+    t0 = time.perf_counter()
+    trace, aux = native.sha_trace_fill(chain, blocks)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref_trace, ref_aux = sha_air._build_sha_trace_numpy(chain, blocks)
+    numpy_s = time.perf_counter() - t0
+    same = bool(np.array_equal(trace, ref_trace)) and aux == ref_aux
+    log(f"  SHA-tier trace, {len(blocks)} blocks, {trace.shape[0]} x {trace.shape[1]}: native {native_s:.3f} s, "
+        f"numpy {numpy_s:.3f} s, equal word for word (aux too): {same}")
+    assert same, "the native trace differs from the numpy builder's"
+    del trace, ref_trace, aux, ref_aux
+
+    tuple_root = native.tuple_root(heights, w.range_data_hashes)
+    golden_root = gmerkle.data_commitment(heights, w.range_data_hashes)
+    many = native.sha256_many(messages)
+    log(f"  tuple_root over {len(heights)} tuples == golden data_commitment == the tree's root: "
+        f"{tuple_root == golden_root == root}; sha256_many over {len(messages)} messages == hashlib: "
+        f"{many == [hashlib.sha256(m).digest() for m in messages]}")
+    assert tuple_root == golden_root == root, "native tuple_root differs from the golden data commitment"
+    assert many == [hashlib.sha256(m).digest() for m in messages], "native sha256_many differs from hashlib"
+
+    # the full tier's message enumeration at config 5, hashed by hashlib (the main path) and by the
+    # native library, alternately
+    hashed = {"hashlib": gsha.sha256, "native": native.sha256}
+    times = {k: [] for k in hashed}
+    outputs = {}
+    for _ in range(3):
+        for name, fn in hashed.items():
+            gsha.sha256 = fn
+            try:
+                t0 = time.perf_counter()
+                outputs[name] = skip_claims.skip_sha_messages(w)
+                times[name].append(time.perf_counter() - t0)
+            finally:
+                gsha.sha256 = hashed["hashlib"]
+    n_msgs = len(outputs["hashlib"][0])
+    log(f"  full-tier message enumeration, {len(heights) + 1} headers, {n_msgs} messages: hashlib "
+        f"{', '.join(f'{t:.3f}' for t in times['hashlib'])} s, native "
+        f"{', '.join(f'{t:.3f}' for t in times['native'])} s")
+    assert outputs["hashlib"] == outputs["native"], "the message enumeration depends on the hash's binding"
+    return dict(build_s=build_s, trace_blocks=len(blocks), trace_native_s=native_s, trace_numpy_s=numpy_s,
+                enumeration_messages=n_msgs, enumeration_hashlib_s=times["hashlib"],
+                enumeration_native_s=times["native"])
+
+
+def batch_items(w) -> list:
+    return [(pk, w.sign_bytes, sig) for pk, sig, s in zip(w.target_set.pubkeys, w.signatures, w.target_signed) if s]
+
+
+def msm_variants(name: str, items, rng) -> dict:
+    """Phase 14 (b): batch_verify on a valid and a tampered batch, and the
+    three MSMs over the batch's 2n+1 points with random
+    scalars, against each other and the golden group law. Returns the warm
+    walls and each warm call's launches."""
+    import torch
+
+    from blobstreamx_tpu_torch import kernels
+    from blobstreamx_tpu_torch.fields import gf25519 as f
+    from blobstreamx_tpu_torch.golden import ed25519 as ged
+    from blobstreamx_tpu_torch.ops import ed25519 as ed, msm
+
+    tampered = [(items[0][0], items[0][1] + b"!", items[0][2])] + items[1:]
+    points, digits, n_invalid = ed.prepare_batch(items, c=msm.FAST_WINDOW_BITS, device="cuda")
+    assert n_invalid == 0, f"{n_invalid} encodings did not decompress"
+    n = points[0].shape[1]
+    scalars = [int.from_bytes(rng.bytes(32), "little") % ged.L for _ in range(n)]
+    digits = msm.scalars_to_digits(scalars, msm.FAST_WINDOW_BITS)
+    coords = [f.to_int(c) for c in points]
+    want = ged.IDENTITY
+    for j, s in enumerate(scalars):
+        want = ged.point_add(want, ged.point_mul(s, tuple(coords[i][j] % ged.Q for i in range(4))))
+    streams = msm.fast_streams("cuda")
+    runs = {
+        "batch_verify": lambda: ed.batch_verify(items, device="cuda"),
+        "msm (device combine)": lambda: msm.msm(*msm.pad_to_streams(points, digits, streams=streams),
+                                                streams=streams, c=msm.FAST_WINDOW_BITS),
+        "msm_host_combined": lambda: msm.msm_host_combined(points, digits, c=msm.FAST_WINDOW_BITS, streams=streams),
+        "msm_bitwise_host_combined": lambda: msm.msm_bitwise_host_combined(points, scalars),
+    }
+    rec = {}
+    for what, run in runs.items():
+        first = run()  # cold: checked
+        kernels.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: kernels.launches[k] for k in ("edwards_add", "pow_chain")}
+        if what == "batch_verify":
+            ok, info = out
+            bad, _ = ed.batch_verify(tampered, device="cuda")
+            log(f"  {name}, {what}: valid {ok} {json.dumps(info)}, tampered message {bad}; warm {wall:.4f} s, "
+                f"launches {json.dumps(launches)}")
+            assert ok and first[0] and not bad, f"{what} gave the wrong verdict ({name})"
+        else:
+            pts = [out, first]
+            if what == "msm (device combine)":
+                pts = [tuple(f.to_int(c)[0] % ged.Q for c in p) for p in pts]
+            same = all(ged.point_equal(p, want) for p in pts)
+            log(f"  {name}, {what} over {n} points: == golden {same}; warm {wall:.4f} s, "
+                f"launches {json.dumps(launches)}")
+            assert same, f"{what} disagrees with the golden group law ({name})"
+        rec[what] = dict(warm_s=wall, launches=launches)
+    return dict(signatures=len(items), points=n, **rec)
+
+
+def single_card_phase(w, chain5, chain_wide, smi: str) -> dict:
+    """Phase 14: (a) the native runtime, (b) the MSM variants at config 5's
+    and config 3's batch widths, (c) the validators hash on the card. Returns
+    the launches of (b)'s warm calls together (path single_card)."""
+    import numpy as np
+
+    from blobstreamx_tpu_torch import kernels
+    from blobstreamx_tpu_torch.circuits import validators as vals, witness as wit
+    from blobstreamx_tpu_torch.ops import sha256 as sha_ops
+
+    rec = {"native": native_runtime(w)}
+    w3 = wit.build_skip_witness(chain_wide, trusted_height=STEP_WIDE["prev_height"],
+                                target_height=STEP_WIDE["prev_height"] + 1)
+    rng = np.random.default_rng(14)
+    rec["config5_batch"] = msm_variants("config 5 (32 signatures)", batch_items(w), rng)
+    rec["config3_batch"] = msm_variants("config 3 (256 signatures)", batch_items(w3), rng)
+    launches = {k: 0 for k in kernels.launches}
+    for batch in ("config5_batch", "config3_batch"):
+        for r in rec[batch].values():
+            if isinstance(r, dict):
+                for k, v in r["launches"].items():
+                    launches[k] += v
+    missing = [k for k in PATH_KERNELS["single_card"] if launches[k] == 0]
+    assert not missing, f"kernels of the single-card path were not launched: {missing} ({launches})"
+
+    rec["validators"] = {}
+    for name, chain in (("config 5", chain5), ("config 3", chain_wide)):
+        vset = chain.val_sets[-1]
+        pairs = [(v.pubkey, v.power) for v in vset.validators]
+        t0 = time.perf_counter()
+        root = sha_ops.digests_to_bytes(vals.validators_root_device(pairs, device="cuda"))[0]
+        wall = time.perf_counter() - t0
+        log(f"  validators_root_device, {name} ({len(pairs)} validators): == host root {root == vset.hash()} "
+            f"({wall:.4f} s)")
+        assert root == vset.hash(), f"the device validators hash differs from the host's ({name})"
+        rec["validators"][name] = dict(validators=len(pairs), wall_s=wall)
+    log(json.dumps({"single_card": dict(rec, launches=launches, card=smi)}))
+    return launches
+
+
 @contextmanager
 def phase(title: str):
     """Print a phase's title, run it, then print its wall time."""
@@ -1663,6 +1868,12 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {src}.cu: {line.strip()}")
+    from blobstreamx_tpu_torch import native
+
+    t0 = time.perf_counter()
+    lib = native.build()
+    log(f"  native host runtime (cc, native/bsx_sha256.c): {lib.relative_to(ROOT)}, "
+        f"{time.perf_counter() - t0:.2f} s")
 
     with phase("[3] kernel checks (kernel vs plain PyTorch on the card, exact)"):
         floor_ms = launch_floor_ms()
@@ -1694,7 +1905,7 @@ def main() -> int:
             by_path["config5_sha"] = config5_sha(w, smi, profile="--profile" in sys.argv[1:])
 
         with phase("[9] prove_step on the card"):
-            by_path["step"] = step_phase(chain5, smi)
+            by_path["step"], chain_wide = step_phase(chain5, smi)
 
         with phase("[10] config 5 at the full-coverage SHA-256 tier, 192 headers, on the card"):
             by_path["config5_full"] = config5_full(smi)
@@ -1705,6 +1916,10 @@ def main() -> int:
         with phase("[13] the operator's surface on the card"):
             log(f"  {smi}")
             by_path["operator"] = operator_phase(w, ed_sha256, smi)
+
+        with phase("[14] the single-card remainder: the native runtime, the MSM variants, the validators hash"):
+            log(f"  {smi}")
+            by_path["single_card"] = single_card_phase(w, chain5, chain_wide, smi)
 
     with phase("[11] the NTT kernels at every shape the main paths launched (vs plain PyTorch, exact)"):
         check_recorded_ntt(np.random.default_rng(11), seen, rows)

@@ -25,8 +25,8 @@ sha_provers: stark.prove against stark_stream.prove_streaming on Sha256Air
              walls and peak memory; the two proofs' bytes must be equal.
 sha_tier:    config 5 at the SHA-256 tier (chip_smoke.py phase 8's
              prove_skip(w, device="cuda", with_sha_stark=True)): one cold and
-             N warm proves, walls and peak memory, and the SHA-256 of the
-             proof bytes (warm == cold); with --expect-sha256, the digest
+             N warm proves, walls, peak memory and TimingTrees, and the SHA-256
+             of the proof bytes (warm == cold); with --expect-sha256, the digest
              must equal the given one (another tree's, from the same call).
 full_tier:   config 5 at the full-coverage SHA-256 tier at its full depth,
              1024 headers (chip_smoke.py phase 10 cuts it to 192):
@@ -140,6 +140,7 @@ def sha_tier(warm: int, expect: str | None) -> list[dict]:
         digests.add(hashlib.sha256(skip_proof_to_bytes(proof)).hexdigest())
         rows.append(dict(run="cold" if i == 0 else f"warm{i - 1}", **rec))
         print(json.dumps(rows[-1]), flush=True)
+        print(proof.timing, flush=True)
         del proof
     assert len(digests) == 1, "the SHA-tier proofs of one process differ"
     digest = digests.pop()

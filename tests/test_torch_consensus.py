@@ -85,6 +85,18 @@ def test_validators_root_matches_golden(n):
     assert tsha.digests_to_bytes(root)[0] == vset.hash()
 
 
+@pytest.mark.parametrize("n", [1, 6])
+def test_validators_root_device_matches_jax(n):
+    from blobstreamx_tpu.circuits import validators as jvals
+
+    vset = tfx.make_validator_set(b"\x09" * 32, list(range(n)), [1000 + 7 * i for i in range(n)])
+    vals = [(v.pubkey, v.power) for v in vset.validators]
+    got = tvals.validators_root_device(vals, device="cpu")
+    assert got.shape == (8, 1)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jvals.validators_root_device(vals)).astype(np.int64))
+    assert tsha.digests_to_bytes(got)[0] == vset.hash()
+
+
 def test_fixture_and_witness_fingerprint_match_jax(chains):
     tchain, jchain = chains
     tw = twit.build_skip_witness(tchain, 2, 10)

@@ -163,3 +163,59 @@ def test_fe_pow22523_and_inv_golden():
     a = tf.from_int(vals)
     assert tf.to_int(tf.canonicalize(tf.pow22523(a))) == [pow(v, (1 << 252) - 3, Q) for v in vals]
     assert tf.to_int(tf.canonicalize(tf.inv(a))) == [pow(v, Q - 2, Q) for v in vals]
+
+
+# ----------------------------------------------------------------------------
+# Goldilocks: pow, select, eq, mul_pow2, and the ext helpers
+# ----------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("e", [0, 1, 7, 15, 16, P - 2])
+def test_gl_pow_matches_jax_and_golden(e):
+    a = gl_values(20, 64)
+    got = tgf.to_u64(tgf.gl_pow(torch_gl(a), e))
+    np.testing.assert_array_equal(got, jgf.to_u64(jgf.gl_pow(jax_gl(a), e)))
+    assert [int(x) for x in got] == [pow(int(x), e, P) for x in a]
+
+
+@pytest.mark.parametrize("k", [0, 1, 5, 16, 31])
+def test_gl_mul_pow2_matches_jax_and_golden(k):
+    a = gl_values(21, 200)
+    got = tgf.to_u64(tgf.gl_mul_pow2(torch_gl(a), k))
+    np.testing.assert_array_equal(got, jgf.to_u64(jgf.gl_mul_pow2(jax_gl(a), k)))
+    assert [int(x) for x in got] == [int(x) * (1 << k) % P for x in a]
+
+
+def test_gl_select_and_eq_match_jax():
+    a, b = gl_values(22, 100), gl_values(23, 100)
+    b[::3] = a[::3]
+    mask = np.random.default_rng(24).integers(0, 2, size=100).astype(bool)
+    eq = tgf.gl_eq(torch_gl(a), torch_gl(b)).numpy()
+    np.testing.assert_array_equal(eq, np.asarray(jgf.gl_eq(jax_gl(a), jax_gl(b))))
+    np.testing.assert_array_equal(eq, a == b)
+    got = tgf.to_u64(tgf.gl_select(torch.from_numpy(mask), torch_gl(a), torch_gl(b)))
+    np.testing.assert_array_equal(got, jgf.to_u64(jgf.gl_select(mask, jax_gl(a), jax_gl(b))))
+    np.testing.assert_array_equal(got, np.where(mask, a, b))
+
+
+EXT_K = (0x123456789ABCDEF, P - 3)
+
+
+@pytest.mark.parametrize("op", ["ext_neg", "ext_scale", "ext_scale_ext", "ext_select", "ext_zeros"])
+def test_ext_helpers_match_jax(op):
+    a, b = _ext(25, 60), _ext(26, 60)
+    ta, ja = (torch_gl(a[0]), torch_gl(a[1])), (jax_gl(a[0]), jax_gl(a[1]))
+    tb, jb = (torch_gl(b[0]), torch_gl(b[1])), (jax_gl(b[0]), jax_gl(b[1]))
+    mask = np.random.default_rng(27).integers(0, 2, size=60).astype(bool)
+    got, want = {
+        "ext_neg": lambda: (tgf.ext_neg(ta), jgf.ext_neg(ja)),
+        "ext_scale": lambda: (tgf.ext_scale(ta[0], EXT_K), jgf.ext_scale(ja[0], EXT_K)),
+        "ext_scale_ext": lambda: (tgf.ext_scale_ext(ta, EXT_K), jgf.ext_scale_ext(ja, EXT_K)),
+        "ext_select": lambda: (tgf.ext_select(torch.from_numpy(mask), ta, tb), jgf.ext_select(mask, ja, jb)),
+        "ext_zeros": lambda: (tgf.ext_zeros((3, 4)), jgf.ext_zeros((3, 4))),
+    }[op]()
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(tgf.to_u64(g), jgf.to_u64(w))
+    if op == "ext_scale_ext":
+        gold_out = [gold.ext_mul((int(x), int(y)), EXT_K) for x, y in zip(*a)]
+        assert list(zip(map(int, tgf.to_u64(got[0])), map(int, tgf.to_u64(got[1])))) == gold_out

@@ -52,6 +52,21 @@ def test_operator_modules_are_checked():
     assert {f"blobstreamx_tpu_torch/{m}.py" for m in OPERATOR_MODULES} <= checked
 
 
+def test_native_runtime_is_checked_and_built_from_the_port():
+    """The port's native host runtime is among the AST-checked files, and the
+    library it loads was built from its own C source into build/native/,
+    never the JAX package's native/libbsx.so."""
+    from blobstreamx_tpu_torch import native
+
+    checked = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    assert "blobstreamx_tpu_torch/native/__init__.py" in checked
+    assert native.SOURCE.resolve() == (ROOT / "blobstreamx_tpu_torch" / "native" / "bsx_sha256.c").resolve()
+    loaded = Path(native.loaded_path()).resolve()
+    assert loaded == native.lib_path().resolve()
+    assert loaded.parent == (ROOT / "build" / "native").resolve()
+    assert loaded != (ROOT / "native" / "libbsx.so").resolve()
+
+
 @pytest.fixture(scope="module")
 def small_witness():
     chain = fx.generate_chain(seed=11, n_headers=12, n_validators=4, rotate_every=4,

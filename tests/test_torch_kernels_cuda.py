@@ -103,6 +103,44 @@ def test_edwards_add_kernel(n):
         assert torch.equal(kc, f.canonicalize(pc)) and torch.equal(kc, f.canonicalize(kc))
 
 
+@pytest.mark.parametrize("n", [1, 64, 4096])
+def test_double_on_the_card(n):
+    """curve.double on CUDA tensors (one Edwards-add launch) against the
+    plain formula add(p, p)."""
+    from blobstreamx_tpu_torch import kernels
+    from blobstreamx_tpu_torch.fields import gf25519 as f
+    from blobstreamx_tpu_torch.ops import curve25519 as curve
+
+    _card()
+    lanes = add_lanes(np.random.default_rng(n + 7), n)
+    p = tuple(f.from_int([pq[0][i] for pq in lanes], "cuda") for i in range(4))
+    before = kernels.launches["edwards_add"]
+    got = curve.double(p)
+    assert kernels.launches["edwards_add"] == before + 1
+    for kc, pc in zip(got, curve.add(p, p)):
+        assert torch.equal(kc, f.canonicalize(pc))
+
+
+@pytest.mark.parametrize("n_points", [2, 8, 1024])
+def test_bitwise_window_sums_on_the_card(n_points, monkeypatch):
+    """msm_bitwise_windows_device on CUDA tensors (its adds through the
+    Edwards-add kernel) against the same function on the plain add."""
+    from blobstreamx_tpu_torch.fields import gf25519 as f
+    from blobstreamx_tpu_torch.ops import curve25519 as curve, msm
+
+    _card()
+    rng = np.random.default_rng(n_points)
+    lanes = add_lanes(rng, n_points)
+    pts = tuple(f.from_int([pq[0][i] for pq in lanes], "cuda") for i in range(4))
+    scalars = [int.from_bytes(rng.bytes(32), "little") for _ in range(n_points)]
+    bits = torch.from_numpy(msm.scalars_to_digits(scalars, 1).astype(np.int64)).cuda()
+    got = msm.msm_bitwise_windows_device(pts, bits)
+    monkeypatch.setattr(curve, "add_fused", curve.add)
+    want = msm.msm_bitwise_windows_device(pts, bits)
+    for kc, pc in zip(got, want):
+        assert torch.equal(kc, f.canonicalize(pc))
+
+
 @pytest.mark.parametrize("k,n", [(None, 64), (None, 4096), (None, 33), (1, 64), (5, 64), (50, 64)])
 def test_power_chain_kernel(k, n):
     from blobstreamx_tpu_torch.fields import gf25519 as f

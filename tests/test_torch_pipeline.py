@@ -10,12 +10,13 @@ records agree.
 All JAX work (prove_skip with its checkpoints and metrics, a second
 prove_skip resumed from the port's consensus and trace, prove_step, the cross-verification, verify_step on
 the step witness and on one with a flipped signature byte, and a signature
-batch with a flipped byte) runs in ONE 1-device subprocess
-(tests/subproc.py), which shares test_pipeline's compiled programs; the port
-runs in-process."""
+batch with a flipped byte) runs in two 1-device subprocesses
+(tests/subproc.py), one for the skip and one for the step, side by side;
+they share test_pipeline's compiled programs. The port runs in-process."""
 
 import dataclasses
 import json
+from concurrent.futures import ThreadPoolExecutor
 import pickle
 import shutil
 
@@ -26,7 +27,8 @@ import torch
 
 from blobstreamx_tpu_torch.circuits import fixtures as fx, step, witness as wit
 from blobstreamx_tpu_torch.circuits.skip import verify_skip
-from blobstreamx_tpu_torch.ops import ed25519 as ted
+from blobstreamx_tpu_torch.golden import ed25519 as gold_ed
+from blobstreamx_tpu_torch.ops import ed25519 as ted, msm
 from blobstreamx_tpu_torch.prover import pipeline
 from blobstreamx_tpu_torch.prover.config import StarkConfig
 from blobstreamx_tpu_torch.prover.serialize import (
@@ -43,7 +45,7 @@ CFG = StarkConfig(rate_bits=2, cap_height=1, num_query_rounds=12, proof_of_work_
 
 STEP_FROM = 9  # the step 9 -> 10 of tests/test_pipeline.py
 
-JAX_SIDE = """
+JAX_PRELUDE = """
 import dataclasses, json, pickle
 from blobstreamx_tpu.circuits import fixtures as fx, step as jstep, witness as wit
 from blobstreamx_tpu.ops import ed25519 as jed
@@ -58,6 +60,9 @@ CFG = StarkConfig(rate_bits=2, cap_height=1, num_query_rounds=12,
                   proof_of_work_bits=4, final_poly_len=4)
 chain = fx.generate_chain(seed=11, n_headers=12, n_validators=4,
                           rotate_every=4, sign_fraction=0.75, sign_heights={{10}})
+"""
+
+JAX_SKIP = JAX_PRELUDE + """
 w = wit.build_skip_witness(chain, trusted_height=2, target_height=10)
 proof = pipeline.prove_skip(w, CFG, checkpoint_dir=OUT + "/jax_ckpt",
                             metrics=MetricsWriter(OUT + "/jax_metrics.jsonl"))
@@ -70,14 +75,20 @@ pub = list(port.publics); pub[0] = pub[1]
 items = pipeline.signature_items(w)
 pk, msg, sig = items[0]
 flipped = [(pk, msg, sig[:7] + bytes([sig[7] ^ 1]) + sig[8:])] + items[1:]
+batch_valid = jed.batch_verify(items, streams=4)
+batch_flipped = jed.batch_verify(flipped, streams=4)
 res = {{
     "jax_accepts_port": pipeline.verify_skip_proof(port, CFG),
     "jax_accepts_tampered_port": pipeline.verify_skip_proof(dataclasses.replace(port, publics=pub), CFG),
-    "jax_batch_valid": jed.batch_verify(items, streams=4)[0],
-    "jax_batch_flipped": jed.batch_verify(flipped, streams=4)[0],
+    "jax_batch_valid": batch_valid[0],
+    "jax_batch_flipped": batch_flipped[0],
+    "jax_batch_results": [list(batch_valid), list(batch_flipped)],
     "jax_from_port_timing": from_port.timing,
 }}
+json.dump(res, open(OUT + "/jax.json", "w"))
+"""
 
+JAX_STEP = JAX_PRELUDE + """
 ws = jstep.build_step_witness(chain, prev_height={step_from})
 pickle.dump(dataclasses.asdict(ws), open(OUT + "/jax_step_witness.pkl", "wb"))
 open(OUT + "/jax_step.bin", "wb").write(step_proof_to_bytes(pipeline.prove_step(ws, CFG)))
@@ -86,12 +97,12 @@ pub = list(port_step.publics); pub[0] = pub[1] * 2 // 3
 checks = {{"valid": jstep.verify_step(ws), "flipped_signature": jstep.verify_step(
     dataclasses.replace(ws, signatures=[ws.signatures[0][:7] + bytes([ws.signatures[0][7] ^ 1])
                                         + ws.signatures[0][8:]] + ws.signatures[1:]))}}
-res.update(
+res = dict(
     jax_accepts_port_step=pipeline.verify_step_proof(port_step, CFG),
     jax_accepts_tampered_port_step=pipeline.verify_step_proof(dataclasses.replace(port_step, publics=pub), CFG),
     jax_verify_step={{k: [bool(r.ok), list(r.reasons)] for k, r in checks.items()}},
 )
-json.dump(res, open(OUT + "/jax.json", "w"))
+json.dump(res, open(OUT + "/jax_step.json", "w"))
 """
 
 
@@ -121,7 +132,8 @@ def runs(tmp_path_factory):
     ws = step.build_step_witness(chain, prev_height=STEP_FROM)
     step_proof = pipeline.prove_step(ws, CFG, device="cpu")
     (out / "port_step.bin").write_bytes(step_proof_to_bytes(step_proof))
-    run_py(JAX_SIDE.format(out=str(out), step_from=STEP_FROM))
+    with ThreadPoolExecutor(2) as pool:
+        list(pool.map(run_py, [code.format(out=str(out), step_from=STEP_FROM) for code in (JAX_SKIP, JAX_STEP)]))
     # the pickle was written by this test's own subprocess above
     carried = wit.step_witness_from_reference(pickle.loads((out / "jax_step_witness.pkl").read_bytes()))
     return dict(
@@ -130,7 +142,7 @@ def runs(tmp_path_factory):
         port=proof,
         port_bytes=(out / "port.bin").read_bytes(),
         jax_bytes=(out / "jax.bin").read_bytes(),
-        jax=json.loads((out / "jax.json").read_text()),
+        jax=json.loads((out / "jax.json").read_text()) | json.loads((out / "jax_step.json").read_text()),
         step_witness=ws,
         step_carried=carried,
         port_step=step_proof,
@@ -209,6 +221,35 @@ def test_consensus_matches_jax(runs):
     flipped = [(pk, msg, sig[:7] + bytes([sig[7] ^ 1]) + sig[8:])] + items[1:]
     assert ted.batch_verify(items, device="cpu")[0] == runs["jax"]["jax_batch_valid"] is True
     assert ted.batch_verify(flipped, device="cpu")[0] == runs["jax"]["jax_batch_flipped"] is False
+
+
+def _signature_batches(w):
+    """The witness's signature batch, and the same with a flipped byte."""
+    items = pipeline.signature_items(w)
+    pk, msg, sig = items[0]
+    return items, [(pk, msg, sig[:7] + bytes([sig[7] ^ 1]) + sig[8:])] + items[1:]
+
+
+def test_batch_verify_results_match_jax(runs):
+    """batch_verify gives the (ok, diagnostics) of the JAX package's
+    batch_verify run with its jitted program in the subprocess (valid, and
+    a flipped signature byte)."""
+    want = [tuple(r) for r in runs["jax"]["jax_batch_results"]]
+    got = [ted.batch_verify(b, streams=4, device="cpu") for b in _signature_batches(runs["witness"])]
+    assert got == want
+    assert got[0][0] is True and got[1][0] is False
+
+
+def test_bitwise_msm_of_signature_batch(runs):
+    """The bitwise MSM over the chain's prepared batch equation is the
+    identity, as the bucket MSM is, and not with a flipped signature byte."""
+    for items, valid in zip(_signature_batches(runs["witness"]), (True, False)):
+        pts, digits, n_invalid = ted.prepare_batch(items, c=4, device="cpu")
+        scalars, _ = ted._equation_scalars(items, None)
+        got = msm.msm_bitwise_host_combined(pts, scalars)
+        assert n_invalid == 0
+        assert gold_ed.point_equal(got, msm.msm_host_combined(pts, digits, c=4, streams=4))
+        assert gold_ed.point_equal(got, gold_ed.IDENTITY) is valid
 
 
 def test_port_step_proof_bytes_equal_jax(runs):
