@@ -187,10 +187,13 @@ def cmd_selftest(args) -> int:
 
 
 def main(argv: list[str] | None = None) -> int:
+    from blobstreamx_tpu_torch.parallel.distributed import add_distributed_args, maybe_initialize
+
     parser = argparse.ArgumentParser(prog="blobstreamx_tpu_torch")
     parser.add_argument("--metrics", default=None, help="JSONL metrics path")
     parser.add_argument("--profile-dir", default=None, help="torch.profiler trace dir")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu (the plain PyTorch path)")
+    add_distributed_args(parser)
     sub = parser.add_subparsers(dest="cmd", required=True)
 
     p = sub.add_parser("prove-skip", help="prove a skip (h1 -> h2) relation")
@@ -224,6 +227,8 @@ def main(argv: list[str] | None = None) -> int:
     p.set_defaults(fn=cmd_selftest)
 
     args = parser.parse_args(argv)
+    # the process group must exist before any device work
+    maybe_initialize(args)
     return args.fn(args)
 
 

@@ -34,7 +34,7 @@ from blobstreamx_tpu_torch.circuits import headers as hdr
 from blobstreamx_tpu_torch.circuits import validators as vals
 from blobstreamx_tpu_torch.circuits.data_commitment import data_commitment_device
 from blobstreamx_tpu_torch.circuits.witness import SkipWitness, ValSetWitness
-from blobstreamx_tpu_torch.device import resolve
+from blobstreamx_tpu_torch.device import resolve_with_mesh
 from blobstreamx_tpu_torch.ops import ed25519 as ed_ops, sha256 as sha_ops
 
 
@@ -92,10 +92,11 @@ def _verify_link_leaves(blocks, n_blocks, siblings, dirs, roots, prev_roots):
     return included & linked
 
 
-def verify_skip(witness: SkipWitness, device=None) -> SkipCheckResult:
+def verify_skip(witness: SkipWitness, device=None, mesh=None) -> SkipCheckResult:
     """Run the full skip relation on `device` (default: the card); returns
-    scalar facts + outputs."""
-    device = resolve(device)
+    scalar facts + outputs. mesh: the data commitment runs over its ranks
+    (data_commitment_device), the rest on every rank."""
+    device = resolve_with_mesh(device, mesh)
     reasons: list[str] = []
     w = witness
 
@@ -174,7 +175,7 @@ def verify_skip(witness: SkipWitness, device=None) -> SkipCheckResult:
         reasons.append("height range is not (trusted, target]")
 
     # --- 8: data commitment over the range ----------------------------------
-    commitment = data_commitment_device(w.range_heights, w.range_data_hashes, device)
+    commitment = data_commitment_device(w.range_heights, w.range_data_hashes, device, mesh=mesh)
 
     # signature bit mask must cover exactly the claimed target signers
     # (trusted_signed is derived from target signers by pubkey — recheck)

@@ -21,6 +21,21 @@ def resolve(device=None) -> torch.device:
     return dev
 
 
+def resolve_with_mesh(device, mesh) -> torch.device:
+    """An entry point's device under ``mesh=`` (parallel.mesh.Mesh): the
+    mesh's device. A ``device=`` that names another device type or card
+    raises ValueError. Without a mesh: resolve(device)."""
+    if mesh is None:
+        return resolve(device)
+    if device is not None:
+        want = torch.device(device)
+        if want.type != mesh.device.type or (
+            want.index is not None and mesh.device.index is not None and want.index != mesh.device.index
+        ):
+            raise ValueError(f"device={want} disagrees with the mesh's device {mesh.device}")
+    return mesh.device
+
+
 def on_cuda(t: torch.Tensor) -> bool:
     """True for a CUDA tensor, False for a CPU tensor; raises for any other
     device (a kernel wrapper either launches its kernel or takes the plain

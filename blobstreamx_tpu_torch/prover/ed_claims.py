@@ -24,7 +24,7 @@ import hashlib
 from contextlib import nullcontext
 from dataclasses import dataclass
 
-from blobstreamx_tpu_torch.device import resolve
+from blobstreamx_tpu_torch.device import resolve_with_mesh
 from blobstreamx_tpu_torch.golden import ed25519 as ged
 from blobstreamx_tpu_torch.prover import ed_air, stark, stark_stream
 from blobstreamx_tpu_torch.prover.config import StarkConfig
@@ -92,6 +92,7 @@ def prove_batch_stark(
     config: StarkConfig | None = None,
     device=None,
     timing=None,
+    mesh=None,
 ) -> EdStarkProof:
     """Prove every scalar multiplication of the batch equation in one STARK
     on `device` (default: the card; raises when CUDA is missing unless
@@ -99,8 +100,9 @@ def prove_batch_stark(
     prover when the standard one would not fit the device; the proof is the
     same either way). items: [(pubkey32, message, signature64)]. timing: a
     TimingTree that the host trace build and the streaming prover's phases
-    are added to. Raises ValueError on malformed input (fail-stop)."""
-    device = resolve(device)
+    are added to. mesh: the STARK runs over its ranks (stark.prove(mesh=)).
+    Raises ValueError on malformed input (fail-stop)."""
+    device = resolve_with_mesh(device, mesh)
     config = config or StarkConfig(rate_bits=2)
     pairs = batch_msm_pairs(items, zs)
     if pairs is None:
@@ -108,7 +110,7 @@ def prove_batch_stark(
     with nullcontext() if timing is None else timing.scope("trace (host)", items=len(pairs), unit="segments"):
         trace, aux = ed_air.build_ed_trace(pairs)
     air = ed_air.EdScalarMulAir(len(pairs))
-    proof = stark_stream.prove_auto(air, trace, [], config, aux=aux, device=device, timing=timing)
+    proof = stark_stream.prove_auto(air, trace, [], config, aux=aux, device=device, timing=timing, mesh=mesh)
     return EdStarkProof(stark=proof, aux=aux, n_rows=trace.shape[0])
 
 

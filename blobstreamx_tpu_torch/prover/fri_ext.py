@@ -48,15 +48,76 @@ def fold_codeword_ext(evals, beta, shift: int):
     """One arity-2 fold of an ext codeword on the base coset shift*<w>.
     beta: ext scalar of shape (1,) (or any broadcastable ext tensor)."""
     n = evals[0][0].shape[0]
-    log_n = n.bit_length() - 1
     half = n // 2
     fe = tuple((c[0][:half], c[1][:half]) for c in (evals[0], evals[1]))
     fo = tuple((c[0][half:], c[1][half:]) for c in (evals[0], evals[1]))
+    return _fold_pairs(fe, fo, beta, n.bit_length() - 1, shift, 0, half)
+
+
+def _fold_pairs(fe, fo, beta, log_n: int, shift: int, a: int, b: int):
+    """The fold of the pairs [a, b) of a length-2^log_n ext codeword: fe and
+    fo are its values at x_i and -x_i, i in [a, b)."""
     # component-wise: even = (fe+fo)/2; odd = (fe-fo)/(2x)
-    inv2, xinv = fri_ops.fold_tables(log_n, shift, str(evals[0][0].device))
+    inv2, xinv = fri_ops.fold_tables(log_n, shift, str(fe[0][0].device))
+    inv2 = (inv2[0][a:b], inv2[1][a:b])
+    xinv = (xinv[0][a:b], xinv[1][a:b])
     even = tuple(gl_mul(gl_add(e, o), inv2) for e, o in zip(fe, fo))
     odd = tuple(gl_mul(gl_mul(gl_sub(e, o), inv2), xinv) for e, o in zip(fe, fo))
     return gf64.ext_add(even, gf64.ext_mul(odd, beta))
+
+
+def _flat(cw):
+    """Ext codeword -> (rows, 4) int64: [c0.lo, c0.hi, c1.lo, c1.hi]."""
+    return torch.stack([cw[0][0], cw[0][1], cw[1][0], cw[1][1]], dim=1)
+
+
+def _unflat(x):
+    return (x[:, 0], x[:, 1]), (x[:, 2], x[:, 3])
+
+
+def _pair_layout(cw_rows, size: int, mesh):
+    """A row-sharded ext codeword (rank t holds rows [t*size/D, (t+1)*size/D))
+    -> this rank's pairs in the pair layout: (fe, fo), the values at
+    x_i and -x_i for i in [r*h/D, (r+1)*h/D), h = size/2 (one all-to-all)."""
+    from blobstreamx_tpu_torch.parallel.mesh import reshard_rows
+
+    d = mesh.size
+    m, q, h = size // d, size // 2 // d, size // 2
+    src = [(t * m, (t + 1) * m) for t in range(d)]
+    want = [[(s * q, (s + 1) * q), (h + s * q, h + (s + 1) * q)] for s in range(d)]
+    fe, fo = reshard_rows(_flat(cw_rows), src, want, mesh)
+    return _unflat(fe), _unflat(fo)
+
+
+def _natural_layout(cw_rows, mesh):
+    """A row-sharded ext codeword -> the whole codeword on every rank."""
+    return _unflat(torch.cat(mesh.all_gather(_flat(cw_rows))))
+
+
+def _layer_fns_mesh(size: int, cap_height: int, shift: int, mesh):
+    """(commit, fold, cap height) of one FRI layer over the mesh, in the pair
+    layout: a rank holds the pairs (x_i, -x_i) of its slice of i, so the
+    pair-leaf hashing and the fold read only its own columns. The fold's
+    output is the next codeword's rows [r*h/D, (r+1)*h/D): row-sharded, so
+    the one collective of a layer is the next layer's re-pairing."""
+    from blobstreamx_tpu_torch.parallel.merkle import poseidon_tree_sharded
+
+    half = size // 2
+    q = half // mesh.size
+    ch = min(cap_height, (half - 1).bit_length())
+
+    def commit(fe, fo):
+        leaves = (
+            torch.stack([fe[0][0], fe[1][0], fo[0][0], fo[1][0]]),
+            torch.stack([fe[0][1], fe[1][1], fo[0][1], fo[1][1]]),
+        )
+        return poseidon_tree_sharded(leaves, mesh, ch)
+
+    def fold(fe, fo, beta):
+        a = mesh.rank * q
+        return _fold_pairs(fe, fo, beta, size.bit_length() - 1, shift, a, a + q)
+
+    return commit, fold, ch
 
 
 def _pair_leaves_ext(evals):
@@ -76,36 +137,55 @@ def _observe_ext(challenger: Challenger, v: tuple[int, int]) -> None:
     challenger.observe(v[1])
 
 
-def fri_prove_ext(evals, config: FriConfig, challenger: Challenger, shift: int = gold.COSET_SHIFT):
+def fri_prove_ext(evals, config: FriConfig, challenger: Challenger, shift: int = gold.COSET_SHIFT, mesh=None):
     """Device ext-FRI prover. evals: ext pair of (n,) Gl tensors on
     shift*<w>, on the device that runs the prover.
+
+    mesh: evals is this rank's rows [r*n/D, (r+1)*n/D) of the codeword; each
+    layer with (size/2) % D == 0 and size/2 >= 2D runs in the pair layout
+    (_layer_fns_mesh), the smaller ones on the gathered codeword on every
+    rank. The proof is the single-device one, the same on every rank.
 
     Returns (proof, query indices) — the caller (the STARK prover) extracts
     layer-0 openings for its own transcript at those indices.
     """
-    n = evals[0][0].shape[0]
+    n = evals[0][0].shape[0] * (1 if mesh is None else mesh.size)
     assert n & (n - 1) == 0
     device = evals[0][0].device
-    codewords = [evals]
-    trees: list[merkle_ops.PoseidonTree] = []
+    # per layer: (tree, the pair values) — ("mesh", fe, fo) or ("whole", codeword)
+    layers = []
+    cur = evals
+    sharded = mesh is not None  # cur is row-sharded
     cur_shift = shift % P
     size = n
     while size > config.final_poly_len:
-        ch = min(config.cap_height, (size // 2 - 1).bit_length())
-        cur = codewords[-1]
-        tree = merkle_ops.PoseidonTree(
-            layers=list(merkle_ops.tree_layers(_pair_leaves_ext(cur), ch)), cap_height=ch
-        )
-        trees.append(tree)
+        use_mesh = mesh is not None and (size // 2) % mesh.size == 0 and size // 2 >= 2 * mesh.size
+        if use_mesh:
+            commit, fold, ch = _layer_fns_mesh(size, config.cap_height, cur_shift, mesh)
+            fe, fo = _pair_layout(cur, size, mesh)
+            tree = commit(fe, fo)
+        else:
+            if sharded:  # the layer is too small for the mesh: every rank takes the whole codeword
+                cur = _natural_layout(cur, mesh)
+                sharded = False
+            ch = min(config.cap_height, (size // 2 - 1).bit_length())
+            tree = merkle_ops.PoseidonTree(
+                layers=list(merkle_ops.tree_layers(_pair_leaves_ext(cur), ch)), cap_height=ch
+            )
         for digest in merkle_ops.cap_to_ints(tree):
             challenger.observe_many(digest)
         beta = challenger.sample_ext()
         beta_d = (gf64.full((1,), beta[0], device), gf64.full((1,), beta[1], device))
-        codewords.append(fold_codeword_ext(cur, beta_d, cur_shift))
+        if use_mesh:
+            layers.append((tree, ("mesh", fe, fo)))
+            cur = fold(fe, fo, beta_d)
+        else:
+            layers.append((tree, ("whole", cur)))
+            cur = fold_codeword_ext(cur, beta_d, cur_shift)
         cur_shift = (cur_shift * cur_shift) % P
         size //= 2
 
-    final_cw = codewords[-1]
+    final_cw = _natural_layout(cur, mesh) if sharded else cur
     fc0 = ntt_ops.coset_intt_cols((final_cw[0][0][:, None], final_cw[0][1][:, None]), cur_shift)
     fc1 = ntt_ops.coset_intt_cols((final_cw[1][0][:, None], final_cw[1][1][:, None]), cur_shift)
     n_final = config.final_poly_len >> config.rate_bits
@@ -120,24 +200,46 @@ def fri_prove_ext(evals, config: FriConfig, challenger: Challenger, shift: int =
     assert challenger.sample() >> (64 - config.proof_of_work_bits) == 0
 
     indices = challenger.sample_indices(config.num_query_rounds, n // 2)
-    host_cw = [(gf64.to_u64(cw[0]), gf64.to_u64(cw[1])) for cw in codewords[:-1]]
+    # layer ell's pair for a query: (f(x_i), f(-x_i)) and the path of leaf i;
+    # in the pair layout the rank that holds pair i answers, and every rank
+    # receives the answers
+    host = []
+    for tree, held in layers:
+        if held[0] == "whole":
+            host.append((gf64.to_u64(held[1][0]), gf64.to_u64(held[1][1])))
+        else:
+            host.append(tuple((gf64.to_u64(c[0]), gf64.to_u64(c[1])) for c in held[1:]))
+    answers = {}
+    size = n
+    for ell, (tree, held) in enumerate(layers):
+        half = size // 2
+        for idx in indices:
+            i = idx % half
+            if held[0] == "whole":
+                c0h, c1h = host[ell]
+                pair = ((int(c0h[i]), int(c1h[i])), (int(c0h[i + half]), int(c1h[i + half])))
+            elif tree.owner(i) == mesh.rank:
+                (e0, e1), (o0, o1) = host[ell]
+                j = i - mesh.rank * (half // mesh.size)
+                pair = ((int(e0[j]), int(e1[j])), (int(o0[j]), int(o1[j])))
+            else:
+                continue
+            answers[(ell, i)] = FriExtLayerProof(pair=pair, path=tree.path(i)[0])
+        size //= 2
+    if mesh is not None:
+        for part in mesh.all_gather_object(answers):
+            answers.update(part)
     query_rounds = []
     for idx in indices:
-        layers = []
-        i = idx
-        for ell, (c0h, c1h) in enumerate(host_cw):
-            half = c0h.shape[0] // 2
-            i %= half
-            path, _ = trees[ell].path(i)
-            pair = (
-                (int(c0h[i]), int(c1h[i])),
-                (int(c0h[i + half]), int(c1h[i + half])),
-            )
-            layers.append(FriExtLayerProof(pair=pair, path=path))
-        query_rounds.append(FriExtQueryRound(layers=layers))
+        rounds = []
+        size = n
+        for ell in range(len(layers)):
+            size //= 2
+            rounds.append(answers[(ell, idx % size)])
+        query_rounds.append(FriExtQueryRound(layers=rounds))
 
     proof = FriExtProof(
-        caps=[merkle_ops.cap_to_ints(t) for t in trees],
+        caps=[merkle_ops.cap_to_ints(t) for t, _ in layers],
         final_poly=final_poly,
         pow_nonce=pow_nonce,
         query_rounds=query_rounds,

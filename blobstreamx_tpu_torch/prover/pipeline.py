@@ -64,7 +64,7 @@ import numpy as np
 from blobstreamx_tpu_torch.circuits.skip import SkipCheckResult, SkipPublicOutputs, verify_skip
 from blobstreamx_tpu_torch.circuits.step import StepCheckResult, StepPublicOutputs, verify_step
 from blobstreamx_tpu_torch.circuits.witness import SkipWitness
-from blobstreamx_tpu_torch.device import resolve
+from blobstreamx_tpu_torch.device import resolve, resolve_with_mesh
 from blobstreamx_tpu_torch.golden import goldilocks as gold
 from blobstreamx_tpu_torch.prover import ed_claims, serialize, sha_claims, skip_claims, stark
 from blobstreamx_tpu_torch.prover.air import Air
@@ -310,10 +310,18 @@ def prove_skip(
     checkpoint_dir: str | None = None,
     with_sha_stark: bool | str = False,
     with_ed_stark: bool = False,
+    mesh=None,
 ) -> SkipProof:
     """The skip pipeline on `device` (default: the card; raises when CUDA is
     missing unless device="cpu" is passed). Raises ValueError (fail-stop) if
     the witness does not satisfy the skip relation.
+
+    mesh (parallel.mesh.Mesh): every rank calls prove_skip with the same
+    arguments and gets the same proof, byte for byte the single-device one:
+    the data commitment, the Ed25519 STARK and the SkipAir STARK run over
+    the ranks, the rest (the SHA tiers too) on every rank. device= must
+    agree with the mesh's device (ValueError). Checkpoints are written by
+    rank 0 alone and read by every rank.
 
     with_sha_stark=True also proves the data-commitment tuple tree in the
     batched SHA-256 STARK (through stark_stream.prove_auto, which streams it
@@ -332,7 +340,7 @@ def prove_skip(
     STARK proofs included, instead of proving them again (see
     utils.failure.run_with_retry). metrics receives the closing "timing"
     record, and "skip_rejected" before the fail-stop."""
-    device = resolve(device)
+    device = resolve_with_mesh(device, mesh)
     config = config or StarkConfig()
     metrics = metrics or MetricsWriter(None)
     timing = TimingTree("prove_skip")
@@ -345,7 +353,7 @@ def prove_skip(
     # keyed by the proof's identity, not by a run id: a retry of the same
     # (witness, config, flags), in this process or another, finds the
     # completed phases of the attempt before it
-    ckpt = PhaseCheckpointer(checkpoint_dir, f"skip-{key}")
+    ckpt = PhaseCheckpointer(checkpoint_dir, f"skip-{key}", read_only=mesh is not None and mesh.rank != 0)
 
     def load(phase: str):
         r = ckpt.load(phase)
@@ -379,7 +387,7 @@ def prove_skip(
         timing.note("consensus+trace resumed from checkpoint")
     else:
         with timing.scope("consensus", items=len(witness.range_heights), unit="headers", sync=device):
-            res = verify_skip(witness, device=device)
+            res = verify_skip(witness, device=device, mesh=mesh)
         if not res.ok:
             metrics.emit("skip_rejected", reasons=res.reasons)
             raise ValueError(f"skip relation unsatisfied: {res.reasons}")
@@ -443,7 +451,8 @@ def prove_skip(
         else:
             items = signature_items(witness)
             with timing.scope("ed_stark", items=len(items), unit="signatures", sync=device):
-                ed_proof = ed_claims.prove_batch_stark(items, config=config, device=device, timing=timing)
+                ed_proof = ed_claims.prove_batch_stark(items, config=config, device=device, timing=timing,
+                                                       mesh=mesh)
             ckpt.save(
                 "ed_stark",
                 arrays={"proof": _proof_bytes_arr(serialize.ed_claims_to_dict(ed_proof))},
@@ -457,7 +466,7 @@ def prove_skip(
         timing.note("stark resumed from checkpoint")
     else:
         with timing.scope("stark", items=trace.shape[0], unit="rows", sync=device):
-            proof = stark.prove(SkipAir(), trace, publics, config, device=device)
+            proof = stark.prove(SkipAir(), trace, publics, config, device=device, mesh=mesh)
         ckpt.save(
             "stark",
             arrays={"proof": _proof_bytes_arr(serialize.stark_proof_to_dict(proof))},

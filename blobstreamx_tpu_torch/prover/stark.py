@@ -515,11 +515,21 @@ def prove(
     shift: int = gold.COSET_SHIFT,
     aux=None,
     device=None,
+    mesh=None,
 ) -> StarkProof:
     """trace: (n_rows, n_cols) uint64 execution trace (rows over the subgroup
     H of order n_rows, natural order). aux: post-commit claims for AIRs with
     sample_challenges (observed into the transcript before sampling).
-    device: where the prover's tensors live (default: the card)."""
+    device: where the prover's tensors live (default: the card).
+
+    mesh: a parallel.mesh.Mesh; every rank of it calls prove with the same
+    arguments and gets the same proof, byte for byte the single-device one.
+    The bounded-memory prover carries the mesh schedule
+    (stark_stream.prove_streaming(mesh=)), so a mesh proof takes that path."""
+    if mesh is not None:
+        from .stark_stream import prove_streaming
+
+        return prove_streaming(air, trace, publics, config, shift, aux, device=device, mesh=mesh)
     device = resolve(device)
     n, n_cols = trace.shape
     assert n & (n - 1) == 0

@@ -31,6 +31,23 @@ Memory strategy (all on the device; nothing large crosses to the host):
   queries    opened rows gather on the device from a recomputed LDE chunk,
              and Merkle paths from the digest layers.
 
+Over a mesh (prove_streaming(mesh=), parallel.mesh.Mesh) every rank runs
+this one transcript on the same inputs and the work is split where it is
+large, with collectives only at the re-shards:
+
+  commit     column chunk i is rank i % D's: its LDE, then one all-to-all a
+             round of D chunks (contiguous columns) moves them to rows, and
+             each rank absorbs its n_ext/D rows into its part of the sponge;
+             the leaf digests are gathered and every rank builds the tree
+  quotient   class r is rank r % D's; the classes' quotients are gathered
+  DEEP       each rank sums its own chunks over the whole domain; the ranks'
+             sums are gathered and added (the field's addition is exact)
+  FRI        prover.fri_ext with the mesh (pair layout, a re-pairing a layer)
+  queries    each rank gathers the opened rows of its own chunks; the rows
+             are gathered, the paths come from the tree every rank holds
+  the coefficients (INTT), the openings and the quotient commit run on
+  every rank (they are small beside the LDE)
+
 Host->device transfer is packed: all-boolean traces (the SHA-256 AIR's 1300
 bit columns) ship as 32 bits per u32 word, u32-range traces as one word per
 value.
@@ -43,7 +60,7 @@ from contextlib import nullcontext
 import numpy as np
 import torch
 
-from blobstreamx_tpu_torch.device import resolve
+from blobstreamx_tpu_torch.device import resolve_with_mesh
 from blobstreamx_tpu_torch.fields import gf64
 from blobstreamx_tpu_torch.fields.gf64 import Gl, gl_mul
 from blobstreamx_tpu_torch.golden import goldilocks as gold
@@ -160,9 +177,11 @@ class _Source:
             self._coeffs[i] = out
         return out
 
-    def chunks(self):
-        """(index, a, b) of every non-empty chunk."""
-        return [(i, a, b) for i, (a, b) in enumerate(self.bounds) if b > a]
+    def chunks(self, mesh=None):
+        """(index, a, b) of every non-empty chunk; with a mesh, of those this
+        rank owns (chunk i is rank i % D's)."""
+        return [(i, a, b) for i, (a, b) in enumerate(self.bounds)
+                if b > a and (mesh is None or i % mesh.size == mesh.rank)]
 
 
 def _empty_source(n: int, chunk: int, device) -> _Source:
@@ -187,16 +206,37 @@ def _absorb(st: Gl, cols: Gl) -> Gl:
     return st
 
 
-def _stream_commit(src: _Source, config: StarkConfig, shift: int, ch: int):
+def _stream_commit(src: _Source, config: StarkConfig, shift: int, ch: int, mesh=None):
     """Streamed trace commit. Returns tree layers (leaf digests first) —
-    the layers of ops.merkle.tree_layers over the full LDE."""
+    the layers of ops.merkle.tree_layers over the full LDE. mesh: a round
+    of D chunks at a time (chunk i extended on rank i % D), moved to rows
+    and absorbed into this rank's n_ext/D sponge columns; the leaf digests
+    are gathered and every rank builds the whole tree."""
     n_ext = src.n << config.rate_bits
-    st = gf64.zeros((WIDTH, n_ext), src.device)
-    for i, _, _ in src.chunks():
-        lde = ntt_ops.lde_cols(src.coeff_chunk(i), config.rate_bits, shift)
-        st = _absorb(st, (lde[0].T, lde[1].T))
+    if mesh is None:
+        st = gf64.zeros((WIDTH, n_ext), src.device)
+        for i, _, _ in src.chunks():
+            lde = ntt_ops.lde_cols(src.coeff_chunk(i), config.rate_bits, shift)
+            st = _absorb(st, (lde[0].T, lde[1].T))
+            del lde
+        return merkle_ops.digest_layers((st[0][:DIGEST], st[1][:DIGEST]), ch)
+    from blobstreamx_tpu_torch.parallel.mesh import cols_to_rows
+
+    d = mesh.size
+    st = gf64.zeros((WIDTH, n_ext // d), src.device)
+    chunks = src.chunks()
+    for t in range(0, len(chunks), d):
+        rnd = chunks[t : t + d]
+        if mesh.rank < len(rnd):
+            lde = torch.stack(ntt_ops.lde_cols(src.coeff_chunk(rnd[mesh.rank][0]), config.rate_bits, shift))
+        else:
+            lde = torch.zeros((2, n_ext, 0), dtype=torch.int64, device=src.device)
+        rows = cols_to_rows(lde, [b - a for _, a, b in rnd] + [0] * (d - len(rnd)), mesh)
         del lde
-    return merkle_ops.digest_layers((st[0][:DIGEST], st[1][:DIGEST]), ch)
+        st = _absorb(st, (rows[0].T, rows[1].T))
+        del rows
+    digests = torch.cat(mesh.all_gather(torch.stack((st[0][:DIGEST], st[1][:DIGEST]))), dim=2)
+    return merkle_ops.digest_layers((digests[0], digests[1]), ch)
 
 
 # ----------------------------------------------------------------------------
@@ -234,15 +274,18 @@ def _eval_rows(n: int, n_cols: int) -> int:
 
 
 def _stream_quotient(air: Air, trace_src, s2_src, fixed_src, publics, alpha_pows, chals,
-                     n: int, config: StarkConfig, shift: int, device) -> Gl:
+                     n: int, config: StarkConfig, shift: int, device, mesh=None) -> Gl:
     """The (n_ext, 2) quotient columns, class by class (row ranges within a
-    class); equal to stark._quotient_cols over the whole domain."""
+    class); equal to stark._quotient_cols over the whole domain. mesh:
+    class r is evaluated on rank r % D, then every rank gathers them."""
     blowup = config.blowup()
     log_n_ext = n.bit_length() - 1 + config.rate_bits
     full_tables = _divisor_tables(n, config, shift, device)
     rows = _eval_rows(n, air.n_cols + air.n_stage2 + air.n_fixed)
     q = gf64.zeros((n, blowup, 2), device)  # [u, r] = point u*blowup + r
     for r in range(blowup):
+        if mesh is not None and r % mesh.size != mesh.rank:
+            continue
         cls = _class_arrays(trace_src, r, log_n_ext, shift)
         s2_cls = _class_arrays(s2_src, r, log_n_ext, shift)
         fx_cls = _class_arrays(fixed_src, r, log_n_ext, shift)
@@ -261,6 +304,12 @@ def _stream_quotient(air: Air, trace_src, s2_src, fixed_src, publics, alpha_pows
             q[1][a:b, r] = part[1]
             del local, nxt, s2, s2_next, fx, fx_next, frames, part
         del cls, s2_cls, fx_cls
+    if mesh is not None:
+        parts = mesh.all_gather(torch.stack(q))  # D x (2, n, blowup, 2)
+        full = torch.empty_like(parts[0])
+        for r in range(blowup):
+            full[:, :, r] = parts[r % mesh.size][:, :, r]
+        q = (full[0], full[1])
     return q[0].reshape(n * blowup, 2), q[1].reshape(n * blowup, 2)
 
 
@@ -295,17 +344,37 @@ def _weighted_sum(lde: Gl, gp) -> tuple[Gl, Gl]:
     )
 
 
-def _stream_rows(src: _Source, positions: torch.Tensor, rate_bits: int, shift: int) -> np.ndarray:
+def _stream_rows(src: _Source, positions: torch.Tensor, rate_bits: int, shift: int, mesh=None) -> np.ndarray:
     """Opened rows (|pos|, C) uint64: per-chunk device gathers from a
-    recomputed LDE chunk, concatenated on the device."""
-    parts = []
-    for i, _, _ in src.chunks():
+    recomputed LDE chunk, placed on the device. mesh: each rank gathers its
+    own chunks' rows; the ranks' rows are gathered and each chunk's
+    columns taken from its rank."""
+    out = torch.zeros((2, positions.shape[0], src.C), dtype=torch.int64, device=src.device)
+    for i, a, b in src.chunks(mesh):
         lde = ntt_ops.lde_cols(src.coeff_chunk(i), rate_bits, shift)
-        parts.append((lde[0].index_select(0, positions), lde[1].index_select(0, positions)))
+        out[0][:, a:b] = lde[0].index_select(0, positions)
+        out[1][:, a:b] = lde[1].index_select(0, positions)
         del lde
-    if not parts:
-        return np.zeros((positions.shape[0], 0), np.uint64)
-    return gf64.to_u64((torch.cat([p[0] for p in parts], 1), torch.cat([p[1] for p in parts], 1)))
+    if mesh is not None:
+        parts = mesh.all_gather(out)
+        for i, a, b in src.chunks():
+            out[:, :, a:b] = parts[i % mesh.size][:, :, a:b]
+    return gf64.to_u64((out[0], out[1]))
+
+
+def _ext_sum_over_ranks(vals, mesh):
+    """Each ext vector of `vals` summed over the ranks of the mesh (the
+    field's addition is exact and canonical, so the terms' order does not
+    change the value)."""
+    parts = mesh.all_gather(torch.stack([w for v in vals for c in v for w in c]))
+    out = []
+    for j in range(len(vals)):
+        acc = None
+        for p in parts:
+            e = ((p[4 * j], p[4 * j + 1]), (p[4 * j + 2], p[4 * j + 3]))
+            acc = e if acc is None else gf64.ext_add(acc, e)
+        out.append(acc)
+    return out
 
 
 def _device_paths(layers, positions: np.ndarray):
@@ -331,10 +400,16 @@ def _device_paths(layers, positions: np.ndarray):
 # ----------------------------------------------------------------------------
 
 
-def _auto_chunk(n_ext: int) -> int:
-    """Columns per chunk: CHUNK_BYTES of LDE, a multiple of RATE in [RATE, 128]."""
+def _auto_chunk(n_ext: int, n_cols: int = 0, mesh=None) -> int:
+    """Columns per chunk: CHUNK_BYTES of LDE, a multiple of RATE in [RATE, 128];
+    under a mesh no wider than an even share of the n_cols trace columns
+    (rounded up to RATE), so that every rank has a chunk to extend."""
     c = CHUNK_BYTES // (n_ext * WORD_BYTES)
-    return int(max(RATE, min(128, (c // RATE) * RATE)))
+    c = int(max(RATE, min(128, (c // RATE) * RATE)))
+    if mesh is not None:
+        share = -(-n_cols // mesh.size)
+        c = min(c, max(RATE, -(-share // RATE) * RATE))
+    return c
 
 
 def estimate_standard_bytes(n: int, n_cols_total: int, config: StarkConfig) -> int:
@@ -359,15 +434,17 @@ def prove_auto(
     aux=None,
     device=None,
     timing=None,
+    mesh=None,
 ) -> StarkProof:
     """stark.prove with the streaming cutover: a prove whose estimate passes
     AUTO_STREAM_BYTES takes the bounded-memory path (bit-identical proof),
     every other the standard one. The choice is the estimate's alone.
-    timing: a TimingTree that the streaming path adds its phases to."""
+    timing: a TimingTree that the streaming path adds its phases to.
+    mesh: always the streaming path, which carries the mesh schedule."""
     from . import stark as _stark
 
-    if uses_streaming(air, trace.shape[0], config):
-        return prove_streaming(air, trace, publics, config, shift, aux, device=device, timing=timing)
+    if mesh is not None or uses_streaming(air, trace.shape[0], config):
+        return prove_streaming(air, trace, publics, config, shift, aux, device=device, timing=timing, mesh=mesh)
     return _stark.prove(air, trace, publics, config, shift=shift, aux=aux, device=device)
 
 
@@ -381,12 +458,16 @@ def prove_streaming(
     col_chunk: int | None = None,
     device=None,
     timing=None,
+    mesh=None,
 ) -> StarkProof:
     """Drop-in replacement for stark.prove with bounded peak memory, on
     `device` (default: the card). The returned proof is bit-identical to
     stark.prove's for the same inputs; stark.verify accepts it unchanged.
-    timing: a TimingTree to time the phases in (each scope synchronises)."""
-    device = resolve(device)
+    timing: a TimingTree to time the phases in (each scope synchronises).
+    mesh: every rank calls this with the same arguments and gets the same
+    proof (the schedule is in the module's docstring); device= must agree
+    with the mesh's device (ValueError)."""
+    device = resolve_with_mesh(device, mesh)
 
     def phase(name):
         return nullcontext() if timing is None else timing.scope(name, sync=device)
@@ -400,7 +481,10 @@ def prove_streaming(
     n_ext = n * blowup
     g = gold.root_of_unity(log_n)
     ch = min(config.cap_height, (n_ext - 1).bit_length())
-    chunk = col_chunk or _auto_chunk(n_ext)
+    if mesh is not None:
+        d = mesh.size
+        assert d & (d - 1) == 0 and n_ext >= d, f"a mesh of {d} ranks needs a power of two <= {n_ext}"
+    chunk = col_chunk or _auto_chunk(n_ext, n_cols, mesh)
     cache_ok = n * (n_cols + air.n_stage2) * WORD_BYTES <= COEFF_CACHE_BYTES
 
     challenger = Challenger()
@@ -409,7 +493,7 @@ def prove_streaming(
     # --- phase 1: streamed trace commit -----------------------------------
     with phase("commit"):
         trace_src = _Source(trace, chunk, cache_ok, device)
-        t_layers = _stream_commit(trace_src, config, shift, ch)
+        t_layers = _stream_commit(trace_src, config, shift, ch, mesh)
         trace_cap = merkle_ops.cap_to_ints(_as_tree(t_layers, ch))
         _observe_cap(challenger, trace_cap)
 
@@ -425,7 +509,7 @@ def prove_streaming(
                 s2 = air.build_stage2(trace, chals, aux)
             assert s2.shape == (n, n_s2)
             s2_src = _Source(np.asarray(s2, np.uint64) % P, chunk, cache_ok, device)
-            s2_layers = _stream_commit(s2_src, config, shift, ch)
+            s2_layers = _stream_commit(s2_src, config, shift, ch, mesh)
             s2_cap = merkle_ops.cap_to_ints(_as_tree(s2_layers, ch))
             _observe_cap(challenger, s2_cap)
         else:
@@ -443,7 +527,7 @@ def prove_streaming(
             fixed_src = _Source(np.asarray(fixed_tab, np.uint64) % P, chunk, True, device)
         q_cols = _stream_quotient(
             air, trace_src, s2_src, fixed_src, pub_elems, _PowerTable(_ext_to_device(alpha, device)),
-            chal_elems, n, config, shift, device,
+            chal_elems, n, config, shift, device, mesh,
         )
         del fixed_src
         q_chunk_coeffs, q_lde, q_layers = _quotient_commit(q_cols, n, config, shift, ch)
@@ -491,11 +575,13 @@ def prove_streaming(
         acc_a = gf64.ext_from_base(gf64.zeros((n_ext,), device))
         acc_b = gf64.ext_from_base(gf64.zeros((n_ext,), device))
         for src, base in ((trace_src, 0), (s2_src, n_cols)):
-            for i, a, b in src.chunks():
+            for i, a, b in src.chunks(mesh):
                 lde = ntt_ops.lde_cols(src.coeff_chunk(i), config.rate_bits, shift)
                 acc_a = gf64.ext_add(acc_a, _weighted_sum(lde, gp_slice(base + a, base + b)))
                 acc_b = gf64.ext_add(acc_b, _weighted_sum(lde, gp_slice(n_wit + base + a, n_wit + base + b)))
                 del lde
+        if mesh is not None:
+            acc_a, acc_b = _ext_sum_over_ranks((acc_a, acc_b), mesh)
         acc_a = gf64.ext_add(acc_a, _weighted_sum(q_lde, gp_slice(2 * n_wit, 2 * n_wit + 2 * blowup)))
         deep_cw = _deep_divide(
             gf64.ext_sub(acc_a, _ext_to_device(ca, device)),
@@ -506,15 +592,18 @@ def prove_streaming(
 
     # --- phase 6: FRI + query openings -------------------------------------
     with phase("fri"):
-        fri_proof, indices = fri_prove_ext(deep_cw, config.fri(), challenger, shift)
+        if mesh is not None:  # fri_ext takes this rank's rows
+            r0, r1 = mesh.rank * (n_ext // mesh.size), (mesh.rank + 1) * (n_ext // mesh.size)
+            deep_cw = tuple((c[0][r0:r1], c[1][r0:r1]) for c in deep_cw)
+        fri_proof, indices = fri_prove_ext(deep_cw, config.fri(), challenger, shift, mesh=mesh)
         del deep_cw
 
     with phase("queries"):
         half = n_ext // 2
         positions = np.array([p for idx in indices for p in (idx % half, idx % half + half)], np.int64)
         pos_d = torch.from_numpy(positions).to(device)
-        t_rows = _stream_rows(trace_src, pos_d, config.rate_bits, shift)
-        s2_rows = _stream_rows(s2_src, pos_d, config.rate_bits, shift) if n_s2 else None
+        t_rows = _stream_rows(trace_src, pos_d, config.rate_bits, shift, mesh)
+        s2_rows = _stream_rows(s2_src, pos_d, config.rate_bits, shift, mesh) if n_s2 else None
         q_rows = gf64.to_u64((q_lde[0].index_select(0, pos_d), q_lde[1].index_select(0, pos_d)))
         t_paths = _device_paths(t_layers, positions)
         q_paths = _device_paths(q_layers, positions)

@@ -20,8 +20,12 @@ import numpy as np
 
 
 class PhaseCheckpointer:
-    def __init__(self, root: str | None, run_id: str):
+    """read_only: load only, save nothing (the ranks of a mesh but rank 0,
+    which alone writes)."""
+
+    def __init__(self, root: str | None, run_id: str, read_only: bool = False):
         self.dir = os.path.join(root, run_id) if root else None
+        self.read_only = read_only
         if self.dir:
             os.makedirs(self.dir, exist_ok=True)
 
@@ -29,7 +33,7 @@ class PhaseCheckpointer:
         return os.path.join(self.dir, f"{phase}.npz"), os.path.join(self.dir, f"{phase}.json")
 
     def save(self, phase: str, arrays: dict[str, np.ndarray] | None = None, scalars: dict | None = None):
-        if not self.dir:
+        if not self.dir or self.read_only:
             return
         npz, js = self._paths(phase)
         tmp = npz + ".tmp"

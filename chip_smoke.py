@@ -172,19 +172,48 @@ result):
      == the host's root. Phase 8's and phase 10's proofs must keep their
      SHA-256s (SHA_TIER_PROOF_SHA256, FULL_192_PROOF_SHA256), and both
      print their "trace (host)" nodes. One JSON line {"single_card": {...}}.
+ 15. parallel/ over torch.distributed (after phase 14; mesh_phase): for
+     each of MESH_RUNS, ranks of this script (`--mesh-rank`, one process
+     each, joined through a file store under build/mesh_phase/), NCCL when
+     every rank has its own card, else gloo (host staging); each rank holds
+     its part word for word against the single card and raises on a
+     difference: (a) ntt_sharded at 2^22 both ways against ntt_four_step,
+     lde_cols_sharded at (2^18, 20), rate 3, against lde_cols; (b)
+     poseidon_tree_sharded over 2^20 leaves at caps 0 and 4 against
+     build_tree (cap and paths), tuple_tree_root_sharded over config 5's
+     1024 headers against data_commitment_device; (c) msm_sharded and
+     msm_bitwise_sharded at 65 and 513 points (phase 14's batches) against
+     msm_host_combined and msm_bitwise_host_combined, batch_verify_sharded
+     valid and tampered against batch_verify; (d) at D = 2 only,
+     prove_skip(w, mesh=) at config 5's default tier (cold, warm) and Ed
+     tier: every rank's SHA-256 must be phase 5's and phase 12's. Prints
+     the backend, each rank's walls, peak device memory and bytes sent by
+     collective; rank 0's launches in (d)'s Ed-tier prove (counts set to 0
+     just before it) are the path "parallel" (each of
+     PATH_KERNELS["parallel"] > 0). Each rank records the NTT shapes it
+     launched, for phase 11. A rank that fails fails the phase. One JSON
+     line {"parallel": {...}}.
  11. every (n, columns, direction) that the NTT kernels were launched at in
-     phases 4-10, 12 and 13 and phase 3 did not check (recorded at the
-     kernel's wrapper while the paths ran), held against the plain version
-     on seeded inputs: mismatches must be 0.
+     phases 4-10 and 12-15 (phase 15's in its ranks) and phase 3 did not
+     check (recorded at the kernel's wrapper while the paths ran), held
+     against the plain version on seeded inputs: mismatches must be 0.
+
+`python3 chip_smoke.py --mesh-only` runs phases 1 and 2, then phase 15
+alone, held to single-card proofs that this process makes in the ranks'
+order (default tier cold and warm, then the Ed tier, its first prove), each
+timed, then phase 11 on the shapes the ranks launched. It prints no result
+line. With one card a rank it measures the mesh under NCCL.
 
 Each phase prints its wall time. Each path has its own list of kernels that
 must launch. Before the last line come {"config5": ...}, {"config4": ...},
 {"config5_sha": ...}, {"step": ...}, {"config5_full": ...},
-{"config5_ed": ...}, {"operator": ...}, {"single_card": ...} and
-{"kernels": [...]}, where each kernel's "launches" is from the warm run of
-its own path ("path") and "launches_by_path" has all eight (the step
-path's from the 256-validator warm prove; "operator" counts phase 13's
-in-process proves, (b) and (c); "single_card" phase 14's warm calls);
+{"config5_ed": ...}, {"operator": ...}, {"single_card": ...},
+{"parallel": ...} and {"kernels": [...]}, where each kernel's "launches"
+is from the warm run of its own path ("path") and "launches_by_path" has
+all nine (the step path's from the 256-validator warm prove; "operator"
+counts phase 13's in-process proves, (b) and (c); "single_card" phase
+14's warm calls; "parallel" rank 0's in phase 15 (d)'s Ed-tier prove, the
+ranks' first at that tier);
 the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -235,7 +264,16 @@ PATH_KERNELS = {
     "operator": ("ntt", "poseidon", "edwards_add", "pow_chain"),
     # phase 14's warm batch verifications and MSM variants
     "single_card": ("edwards_add", "pow_chain"),
+    # phase 15 (d): prove_skip(mesh=, with_ed_stark=True) at config 5, rank 0's launches
+    "parallel": ("ntt", "ntt_multi", "poseidon", "edwards_add", "pow_chain"),
 }
+# phase 15: the meshes (ranks on the card(s)) and the parts each runs: (a) NTT, (b) Merkle, (c) MSM,
+# (d) prove_skip(mesh=) at config 5's default and Ed tiers
+MESH_RUNS = ((2, "abcd"), (4, "abc"))
+MESH_NTT_LOG = 22  # config 4's length
+MESH_LDE = (1 << 18, 20, 3)  # rows, columns, rate_bits
+MESH_TREE = (8, 1 << 20, (0, 4))  # leaf width, leaves, caps
+MESH_RANK_TIMEOUT_S = 420
 # phase 13: the CLI's prove-skip at config 5's Ed tier (the chain of phase 5), and three pipelined
 # default-tier proves at config 5's width, on one chain signed at each target
 OPERATOR_CLI = ["prove-skip", "--headers", "1024", "--validators", "32", "--trusted", "1", "--target", "1024",
@@ -777,6 +815,8 @@ def config5():
     missing = [k for k in PATH_KERNELS["config5"] if launches[k] == 0]
     assert not missing, f"kernels of the config-5 path were not launched: {missing} ({launches})"
     assert skip_proof_to_bytes(warm) == skip_proof_to_bytes(cold), "warm and cold proofs differ"
+    digest = hashlib.sha256(skip_proof_to_bytes(warm)).hexdigest()
+    log(f"  warm proof SHA-256 {digest}")
 
     t0 = time.perf_counter()
     ok = pipeline.verify_skip_proof(warm)
@@ -787,7 +827,7 @@ def config5():
     tampered = pipeline.verify_skip_proof(dataclasses.replace(warm, publics=pub))
     log(f"  tampered publics[0] accepted: {tampered}")
     assert not tampered, "a tampered proof was accepted"
-    return launches, cold_s, warm_s, w, chain
+    return launches, cold_s, warm_s, w, chain, digest
 
 
 def config4_inputs(seed: int, log_n: int, log_coeffs: int):
@@ -1832,6 +1872,338 @@ def single_card_phase(w, chain5, chain_wide, smi: str) -> dict:
     return launches
 
 
+# ----------------------------------------------------------------------------
+# phase 15: parallel/ over torch.distributed, ranks on the card
+# ----------------------------------------------------------------------------
+
+
+def _equal_gl(a, b) -> bool:
+    import torch
+
+    return bool(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]))
+
+
+def mesh_rank(rank: int, world: int, run_dir: Path, parts: str) -> int:
+    """One rank of phase 15 (run as `chip_smoke.py --mesh-rank RANK WORLD
+    DIR PARTS`): joins the group through a file store in DIR, checks each
+    part against its single-card counterpart on this rank's card, writes
+    DIR/rank<RANK>.json with the NTT shapes it launched. Any failed check
+    raises (the rank exits non-zero)."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from blobstreamx_tpu_torch.parallel import mesh as pm
+    from blobstreamx_tpu_torch.parallel.distributed import default_backend
+
+    backend = default_backend(world)  # NCCL with a card a rank, else gloo
+    torch.cuda.set_device(rank % torch.cuda.device_count())
+    dist.init_process_group(backend, init_method=f"file://{run_dir / 'store'}", world_size=world, rank=rank)
+    mesh = pm.make_mesh(world, device="cuda")
+    inputs = pickle.loads((run_dir / "inputs.pkl").read_bytes())
+    rec = dict(rank=rank, world=world, backend=backend, staging=mesh.staging, device=str(mesh.device), parts={})
+    seen = set()
+    with recorded_ntt_shapes(seen):
+        mesh_parts(mesh, rank, world, parts, inputs, rec)
+    rec["ntt_shapes"] = sorted(seen)
+    rec["moved_bytes"] = dict(mesh.moved)
+    (run_dir / f"rank{rank}.json").write_text(json.dumps(rec))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def mesh_parts(mesh, rank: int, world: int, parts: str, inputs: dict, rec: dict) -> None:
+    """mesh_rank's checks: the parts of `parts` on this rank, into rec."""
+    import numpy as np
+    import torch
+
+    from blobstreamx_tpu_torch import kernels
+    from blobstreamx_tpu_torch.fields import gf64
+    from blobstreamx_tpu_torch.golden import ed25519 as ged
+    from blobstreamx_tpu_torch.ops import ed25519 as ed, merkle, msm, ntt
+    from blobstreamx_tpu_torch.parallel import mesh as pm, merkle as pmerkle, msm as pmsm, ntt as pntt
+
+    dev = mesh.device
+    rng = np.random.default_rng(15)
+
+    def step(name, run):
+        """run() -> (facts, the wall of the step's timed call); peak memory and bytes moved per step."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = dict(mesh.moved)
+        facts, wall = run()
+        torch.cuda.synchronize()
+        moved = {k: v - before.get(k, 0) for k, v in mesh.moved.items() if v - before.get(k, 0)}
+        rec["parts"][name] = dict(facts, wall_s=wall, peak_device_bytes=torch.cuda.max_memory_allocated(),
+                                  moved_bytes=moved)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    if "a" in parts:
+        x = gf64.from_u64(rng.integers(0, gf64.P, 1 << MESH_NTT_LOG, dtype=np.uint64), dev)
+        for inverse in (False, True):
+            def run_ntt(inverse=inverse):
+                pntt.ntt_sharded(x, mesh, inverse)  # cold
+                got, wall = timed(lambda: pntt.ntt_sharded(x, mesh, inverse))
+                assert _equal_gl(got, ntt.ntt_four_step(x, inverse)), "ntt_sharded differs from ntt_four_step"
+                return dict(n=1 << MESH_NTT_LOG, inverse=inverse, equal=True), wall
+            step(f"a ntt_sharded 2^{MESH_NTT_LOG} {'inverse' if inverse else 'forward'}", run_ntt)
+        rows, cols, rate = MESH_LDE
+        coeffs = gf64.from_u64(rng.integers(0, gf64.P, (rows, cols), dtype=np.uint64), dev)
+
+        def run_lde():
+            a, b = pm.col_bounds(cols, mesh)
+            local = (coeffs[0][:, a:b].contiguous(), coeffs[1][:, a:b].contiguous())
+            got, wall = timed(lambda: pntt.lde_cols_sharded(local, rate, mesh))
+            want = ntt.lde_cols(coeffs, rate)
+            assert _equal_gl(got, (want[0][:, a:b], want[1][:, a:b])), "lde_cols_sharded differs from lde_cols"
+            return dict(shape=[rows, cols], rate_bits=rate, local_cols=b - a, equal=True), wall
+        step(f"a lde_cols_sharded ({rows}, {cols}) rate {rate}", run_lde)
+        del x, coeffs
+
+    if "b" in parts:
+        width, n, caps = MESH_TREE
+        leaves = gf64.from_u64(rng.integers(0, gf64.P, (width, n), dtype=np.uint64), dev)
+        per = n // world
+        local = tuple(c[:, rank * per : (rank + 1) * per].contiguous() for c in leaves)
+        for cap in caps:
+            def run_tree(cap=cap):
+                tree, wall = timed(lambda: pmerkle.poseidon_tree_sharded(local, mesh, cap))
+                want = merkle.build_tree(leaves, cap)
+                assert _equal_gl(tree.cap, want.cap), f"poseidon_tree_sharded's cap differs (cap {cap})"
+                mine = [rank * per + j for j in (0, 1, per // 3, per - 1)]
+                assert all(tree.path(i) == want.path(i) for i in mine), f"a path differs (cap {cap})"
+                return dict(leaves=n, width=width, cap_height=cap, equal=True, paths_checked=len(mine)), wall
+            step(f"b poseidon_tree_sharded 2^{n.bit_length() - 1} leaves cap {cap}", run_tree)
+        del leaves, local
+
+        def run_tuple():
+            from blobstreamx_tpu_torch.circuits.data_commitment import data_commitment_device, heights_to_u32
+            from blobstreamx_tpu_torch.ops import sha256 as sha_ops
+
+            heights, hashes = inputs["tuple_heights"], inputs["tuple_hashes"]
+            hlo, hhi = heights_to_u32(heights)
+            root, wall = timed(lambda: pmerkle.tuple_tree_root_sharded(
+                hlo, hhi, sha_ops.bytes32_to_words(hashes), mesh))
+            want = data_commitment_device(heights, hashes, dev)
+            assert sha_ops.digests_to_bytes(root)[0] == want, "tuple_tree_root_sharded differs"
+            assert data_commitment_device(heights, hashes, dev, mesh=mesh) == want
+            return dict(leaves=len(heights), equal=True), wall
+        step(f"b tuple_tree_root_sharded {len(inputs['tuple_heights'])} leaves", run_tuple)
+
+    if "c" in parts:
+        streams = msm.fast_streams("cuda")
+        for name, items, scalars in inputs["batches"]:
+            points, _, n_invalid = ed.prepare_batch(items, c=msm.FAST_WINDOW_BITS, device=dev)
+            assert n_invalid == 0
+            digits = msm.scalars_to_digits(scalars, msm.FAST_WINDOW_BITS)
+
+            def affine(p):
+                zi = pow(p[2] % ged.Q, ged.Q - 2, ged.Q)
+                return (p[0] * zi % ged.Q, p[1] * zi % ged.Q)
+
+            def run_msm(points=points, digits=digits):
+                pmsm.msm_sharded(points, digits, mesh, streams=streams)
+                got, wall = timed(lambda: pmsm.msm_sharded(points, digits, mesh, streams=streams))
+                want = msm.msm_host_combined(points, digits, c=msm.FAST_WINDOW_BITS, streams=streams)
+                assert affine(got) == affine(want), "msm_sharded differs from msm_host_combined"
+                return dict(points=points[0].shape[1], equal=True), wall
+            step(f"c msm_sharded {name}", run_msm)
+
+            def run_bitwise(points=points, scalars=scalars):
+                pmsm.msm_bitwise_sharded(points, scalars, mesh)
+                got, wall = timed(lambda: pmsm.msm_bitwise_sharded(points, scalars, mesh))
+                want = msm.msm_bitwise_host_combined(points, scalars)
+                assert affine(got) == affine(want), "msm_bitwise_sharded differs from msm_bitwise_host_combined"
+                return dict(points=points[0].shape[1], equal=True), wall
+            step(f"c msm_bitwise_sharded {name}", run_bitwise)
+
+            tampered = [(items[0][0], items[0][1] + b"!", items[0][2])] + items[1:]
+            for what, batch in (("valid", items), ("tampered", tampered)):
+                def run_bv(batch=batch):
+                    pmsm.batch_verify_sharded(batch, mesh, streams=streams)
+                    (ok, _), wall = timed(lambda: pmsm.batch_verify_sharded(batch, mesh, streams=streams))
+                    want, _ = ed.batch_verify(batch, device=dev)
+                    assert ok == want == (batch is items), "batch_verify_sharded differs from batch_verify"
+                    return dict(signatures=len(batch), verdict=ok), wall
+                step(f"c batch_verify_sharded {name} {what}", run_bv)
+
+    if "d" in parts:
+        from blobstreamx_tpu_torch.prover import pipeline
+        from blobstreamx_tpu_torch.prover.serialize import skip_proof_to_bytes
+
+        w = inputs["witness"]
+        for tier, kw, want in inputs["proves"]:
+            def run_prove(kw=kw, want=want):
+                proof, wall = timed(lambda: pipeline.prove_skip(w, mesh=mesh, **kw))
+                digest = hashlib.sha256(skip_proof_to_bytes(proof)).hexdigest()
+                assert digest == want, f"prove_skip(mesh=) gave {digest}, the single card {want}"
+                return dict(sha256=digest, timing=proof.timing.splitlines()), wall
+            name = f"d prove_skip config 5 {tier} tier"
+            if tier == "ed":  # the path's launches: this one prove's
+                kernels.reset_counts()
+            step(name + (" (warm)" if name in rec["parts"] else ""), run_prove)
+            if tier == "ed":
+                rec["launches"] = dict(kernels.launches)
+
+
+def run_mesh(world: int, parts: str, run_dir: Path) -> list[dict]:
+    """Spawn `world` ranks of this script; a rank that fails, or outlives
+    MESH_RANK_TIMEOUT_S, fails the phase (the others are killed)."""
+    run_dir.mkdir(parents=True, exist_ok=True)
+    (run_dir / "store").unlink(missing_ok=True)
+    logs = [open(run_dir / f"rank{r}.log", "w") for r in range(world)]
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--mesh-rank", str(r), str(world),
+                               str(run_dir), parts], stdout=logs[r], stderr=subprocess.STDOUT, cwd=ROOT)
+             for r in range(world)]
+    t0 = time.perf_counter()
+    try:
+        while any(p.poll() is None for p in procs):
+            failed = [r for r, p in enumerate(procs) if p.poll() not in (None, 0)]
+            assert not failed, f"mesh rank(s) {failed} failed"
+            assert time.perf_counter() - t0 < MESH_RANK_TIMEOUT_S, "a mesh rank outlived its time limit"
+            time.sleep(0.2)
+    except AssertionError:
+        for r in range(world):
+            log(f"  rank {r} log (tail):\n" + (run_dir / f"rank{r}.log").read_text()[-3000:])
+        raise
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for fh in logs:
+            fh.close()
+    rcs = [p.returncode for p in procs]
+    assert rcs == [0] * world, f"mesh ranks exited {rcs}"
+    return [json.loads((run_dir / f"rank{r}.json").read_text()) for r in range(world)]
+
+
+def mesh_phase(w, chain5, chain_wide, digest5: str, digest_ed: str, smi: str, seen: set) -> dict:
+    """Phase 15: each of MESH_RUNS spawns its ranks (a process each, every
+    rank checking its part word for word against the single-card
+    counterpart, raising on a difference); prints the backend, each rank's
+    walls, peaks and bytes moved by collective, and adds the NTT shapes the
+    ranks launched to `seen`. Returns rank 0's launches in (d)'s Ed-tier
+    prove (path "parallel")."""
+    import gc
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from blobstreamx_tpu_torch.circuits import witness as wit
+    from blobstreamx_tpu_torch.golden import ed25519 as ged
+
+    gc.collect()
+    torch.cuda.empty_cache()  # the ranks share the card: this process keeps no cached blocks
+    log(f"  this process before the ranks: {torch.cuda.memory_allocated()} bytes allocated, "
+        f"{torch.cuda.memory_reserved()} reserved")
+    w3 = wit.build_skip_witness(chain_wide, trusted_height=STEP_WIDE["prev_height"],
+                                target_height=STEP_WIDE["prev_height"] + 1)
+    rng = np.random.default_rng(15)
+    batches = []
+    for name, wit_ in (("config 5 (32 signatures, 65 points)", w), ("config 3 (256 signatures, 513 points)", w3)):
+        items = batch_items(wit_)
+        scalars = [int.from_bytes(rng.bytes(32), "little") % ged.L for _ in range(2 * len(items) + 1)]
+        batches.append((name, items, scalars))
+    run_root = ROOT / "build" / "mesh_phase"
+    shutil.rmtree(run_root, ignore_errors=True)
+    launches = None
+    rec = {"card": smi}
+    for world, parts in MESH_RUNS:
+        run_dir = run_root / f"d{world}"
+        run_dir.mkdir(parents=True)
+        inputs = dict(
+            batches=batches,
+            tuple_heights=[sh.header.height for sh in chain5.headers],
+            tuple_hashes=[sh.header.data_hash for sh in chain5.headers],
+            witness=w if "d" in parts else None,
+            # (tier, prove_skip's keywords, the single card's SHA-256): cold and warm default, then Ed
+            proves=[("default", {}, digest5), ("default", {}, digest5),
+                    ("ed", {"with_ed_stark": True}, digest_ed)],
+        )
+        (run_dir / "inputs.pkl").write_bytes(pickle.dumps(inputs))
+        t0 = time.perf_counter()
+        ranks = run_mesh(world, parts, run_dir)
+        wall = time.perf_counter() - t0
+        r0 = ranks[0]
+        log(f"  D = {world}: backend {r0['backend']}, host staging {r0['staging']}, devices "
+            f"{[r['device'] for r in ranks]}, parts {parts}, {wall:.3f} s with the ranks' start")
+        for name in r0["parts"]:
+            walls = [r["parts"][name]["wall_s"] for r in ranks]
+            peaks = [r["parts"][name]["peak_device_bytes"] for r in ranks]
+            moved = [r["parts"][name]["moved_bytes"] for r in ranks]
+            facts = {k: v for k, v in r0["parts"][name].items()
+                     if k not in ("wall_s", "peak_device_bytes", "moved_bytes", "timing")}
+            log(f"    {name}: walls {['%.4f' % x for x in walls]} s, peaks {peaks} bytes, moved {moved}, "
+                f"{json.dumps(facts)}")
+            if "timing" in r0["parts"][name]:
+                log("      rank 0's TimingTree: " + " | ".join(t.strip() for t in r0["parts"][name]["timing"]))
+        shapes = {tuple(x) for r in ranks for x in r.pop("ntt_shapes")}
+        log(f"  D = {world}: the ranks launched the NTT kernels at {len(shapes)} shapes: {sorted(shapes)}")
+        seen |= shapes
+        rec[f"d{world}"] = dict(backend=r0["backend"], staging=r0["staging"], wall_s=wall,
+                                ranks=[{k: v for k, v in r.items() if k != "rank"} for r in ranks])
+        if "launches" in r0:
+            launches = r0["launches"]
+    assert launches is not None, "no mesh run proved"
+    log(f"  rank 0's launches in (d)'s Ed-tier prove: {json.dumps(launches)}")
+    missing = [k for k in PATH_KERNELS["parallel"] if launches[k] == 0]
+    assert not missing, f"kernels of the parallel path were not launched: {missing} ({launches})"
+    for d in rec.values():
+        if isinstance(d, dict):
+            for r in d["ranks"]:
+                for part in r["parts"].values():
+                    part.pop("timing", None)
+    log(json.dumps({"parallel": dict(rec, launches=launches)}))
+    return launches
+
+
+def mesh_only(smi: str) -> None:
+    """`--mesh-only`: phase 15 alone, held to single-card proofs made here in
+    the ranks' order (default tier cold and warm, then the Ed tier, its
+    first prove in this process), then phase 11 on the shapes the ranks
+    launched."""
+    import numpy as np
+    import torch
+
+    from blobstreamx_tpu_torch.circuits import fixtures as fx, witness as wit
+    from blobstreamx_tpu_torch.prover import pipeline
+    from blobstreamx_tpu_torch.prover.serialize import skip_proof_to_bytes
+
+    c, s = CONFIG5, STEP_WIDE
+    chain5 = fx.generate_chain(seed=c["seed"], n_headers=c["n_headers"], n_validators=c["n_validators"],
+                               sign_heights={c["target"]})
+    w = wit.build_skip_witness(chain5, trusted_height=c["trusted"], target_height=c["target"])
+    chain_wide = fx.generate_chain(seed=s["seed"], n_headers=s["n_headers"], n_validators=s["n_validators"],
+                                   sign_heights={s["prev_height"] + 1})
+    single = {}
+    for name, kw in (("default cold", {}), ("default warm", {}), ("ed", {"with_ed_stark": True})):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        proof = pipeline.prove_skip(w, device="cuda", **kw)
+        torch.cuda.synchronize()
+        single[name] = dict(wall_s=time.perf_counter() - t0,
+                            sha256=hashlib.sha256(skip_proof_to_bytes(proof)).hexdigest())
+        log(f"  single card, prove_skip config 5 {name}: {single[name]['wall_s']:.3f} s, "
+            f"SHA-256 {single[name]['sha256']}")
+    log(json.dumps({"single_card_proves": dict(single, card=smi)}))
+    seen = set()
+    with phase("[15] parallel/ over torch.distributed: ranks on the card(s)"):
+        log(f"  {smi}; cards {torch.cuda.device_count()}")
+        mesh_phase(w, chain5, chain_wide, single["default warm"]["sha256"], single["ed"]["sha256"], smi, seen)
+    with phase("[11] the NTT kernels at every shape the ranks launched (vs plain PyTorch, exact)"):
+        check_recorded_ntt(np.random.default_rng(11), seen, {"ntt": [], "ntt_multi": []})
+
+
 @contextmanager
 def phase(title: str):
     """Print a phase's title, run it, then print its wall time."""
@@ -1848,6 +2220,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
         return 2
     from blobstreamx_tpu_torch import kernels  # fails outside a checkout of the repository
+
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        rank, world, run_dir, parts = sys.argv[2:6]
+        return mesh_rank(int(rank), int(world), Path(run_dir), parts)
 
     import numpy as np
 
@@ -1874,6 +2250,9 @@ def main() -> int:
     lib = native.build()
     log(f"  native host runtime (cc, native/bsx_sha256.c): {lib.relative_to(ROOT)}, "
         f"{time.perf_counter() - t0:.2f} s")
+    if "--mesh-only" in sys.argv[1:]:
+        mesh_only(smi)
+        return 0
 
     with phase("[3] kernel checks (kernel vs plain PyTorch on the card, exact)"):
         floor_ms = launch_floor_ms()
@@ -1889,7 +2268,7 @@ def main() -> int:
             small_chain_card_vs_cpu()
 
         with phase("[5] config 5 on the card"):
-            launches5, cold_s, warm_s, w, chain5 = config5()
+            launches5, cold_s, warm_s, w, chain5, digest5 = config5()
             log(json.dumps({"config5": {"cold_s": cold_s, "warm_s": warm_s, "launches": launches5, "card": smi}}))
         if "--profile" in sys.argv[1:]:
             from blobstreamx_tpu_torch.prover import pipeline
@@ -1920,6 +2299,10 @@ def main() -> int:
         with phase("[14] the single-card remainder: the native runtime, the MSM variants, the validators hash"):
             log(f"  {smi}")
             by_path["single_card"] = single_card_phase(w, chain5, chain_wide, smi)
+
+        with phase("[15] parallel/ over torch.distributed: ranks on the card"):
+            log(f"  {smi}; cards {torch.cuda.device_count()}")
+            by_path["parallel"] = mesh_phase(w, chain5, chain_wide, digest5, ed_sha256, smi, seen)
 
     with phase("[11] the NTT kernels at every shape the main paths launched (vs plain PyTorch, exact)"):
         check_recorded_ntt(np.random.default_rng(11), seen, rows)

@@ -150,3 +150,54 @@ def test_kernel_wrappers_take_the_plain_version_only_for_cpu_tensors():
     assert all(v == 0 for v in kernels.launches.values())
     with pytest.raises(ValueError):
         ntt.ntt_cols(tuple(t.to("meta") for t in x))
+
+
+# the parallel package: the mesh, the bring-up and the sharded modules
+PARALLEL_MODULES = ("__init__", "mesh", "distributed", "ntt", "merkle", "msm")
+
+
+def test_parallel_modules_are_checked():
+    checked = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    assert {f"blobstreamx_tpu_torch/parallel/{m}.py" for m in PARALLEL_MODULES} <= checked
+
+
+def test_cuda_mesh_without_a_card_raises():
+    from blobstreamx_tpu_torch.parallel import mesh as pm
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: a cuda mesh is usable here")
+    for device in (None, "cuda", "cuda:0"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            pm.make_mesh(1, device=device)
+
+
+@pytest.fixture
+def one_rank_group(tmp_path):
+    """A one-process gloo group (file store), torn down after the test."""
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}", world_size=1, rank=0)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def test_entry_points_refuse_a_device_other_than_the_mesh(small_witness, one_rank_group):
+    """device= and mesh= that disagree raise ValueError before any work: a
+    CPU mesh with device="cuda", and a mesh on the card with device="cpu"."""
+    import torch.distributed as dist
+
+    from blobstreamx_tpu_torch.circuits.skip import verify_skip
+    from blobstreamx_tpu_torch.parallel import mesh as pm
+    from blobstreamx_tpu_torch.prover import pipeline
+
+    cpu_mesh = pm.make_mesh(1, device="cpu")
+    assert (cpu_mesh.rank, cpu_mesh.size, cpu_mesh.backend, cpu_mesh.staging) == (0, 1, "gloo", False)
+    card_mesh = pm.Mesh(dist.group.WORLD, [0], torch.device("cuda", 0), "gloo")
+    assert card_mesh.staging  # gloo moves host tensors: a card mesh stages through the host
+    for mesh, device in ((cpu_mesh, "cuda"), (card_mesh, "cpu"), (card_mesh, "cuda:1")):
+        with pytest.raises(ValueError, match="disagrees with the mesh"):
+            pipeline.prove_skip(small_witness, mesh=mesh, device=device)
+        with pytest.raises(ValueError, match="disagrees with the mesh"):
+            verify_skip(small_witness, mesh=mesh, device=device)

@@ -220,3 +220,130 @@ def test_step_on_the_card_equals_the_cpu():
     on_cpu = pipeline.prove_step(w, cfg, device="cpu")
     assert step_proof_to_bytes(on_card) == step_proof_to_bytes(on_cpu)
     assert pipeline.verify_step_proof(on_card, cfg)
+
+
+# ----------------------------------------------------------------------------
+# parallel/: two gloo ranks sharing the card (tests/torch_parallel_ranks.py's
+# "d2" mesh on cuda), held to the single-device port on the CPU
+# ----------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def card_ranks(tmp_path_factory):
+    import os
+    import pickle
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    _card()
+    out = tmp_path_factory.mktemp("card_ranks")
+    script = Path(__file__).resolve().parent / "torch_parallel_ranks.py"
+    procs = [subprocess.Popen([sys.executable, str(script), str(r), "2", str(out / "store"), str(out), "cuda"],
+                              env=dict(os.environ, OMP_NUM_THREADS="1"), stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{log[-4000:]}"
+    return [pickle.loads((out / f"rank{r}.pkl").read_bytes()) for r in range(2)]
+
+
+def _card_values(card_ranks, check, case):
+    got = [res[("d2", check, case)] for res in card_ranks]
+    for v in got:
+        assert not (isinstance(v, str) and v.startswith("raised")), v
+    return got
+
+
+def _golden_msm(points, scalars):
+    from blobstreamx_tpu_torch.golden import ed25519 as ged
+
+    acc = ged.IDENTITY
+    for s, p in zip(scalars, points):
+        acc = ged.point_add(acc, ged.point_mul(s, p))
+    return acc
+
+
+@pytest.mark.parametrize("log_n", [4, 7, 10])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_ntt_sharded_on_the_card(card_ranks, log_n, inverse):
+    import torch_parallel_ranks as R
+    from blobstreamx_tpu_torch.fields import gf64
+    from blobstreamx_tpu_torch.ops import ntt
+
+    x = R.gl_input(log_n, (1 << log_n,))
+    want = gf64.to_u64(ntt.ntt_cols_plain(gf64.from_u64(x[:, None]), inverse))[:, 0]
+    for got in _card_values(card_ranks, "ntt_sharded", (log_n, inverse)):
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("shape", [(32, 16), (32, 7)])
+def test_lde_cols_sharded_on_the_card(card_ranks, shape):
+    import torch_parallel_ranks as R
+    from blobstreamx_tpu_torch.fields import gf64
+    from blobstreamx_tpu_torch.ops import ntt
+
+    want = gf64.to_u64(ntt.lde_cols(gf64.from_u64(R.gl_input(3, shape)), 2))
+    np.testing.assert_array_equal(np.concatenate(_card_values(card_ranks, "lde_cols_local", shape), axis=1), want)
+
+
+@pytest.mark.parametrize("cap", [0, 1, 2, 3])
+def test_poseidon_tree_sharded_on_the_card(card_ranks, cap):
+    import torch_parallel_ranks as R
+    from blobstreamx_tpu_torch.fields import gf64
+    from blobstreamx_tpu_torch.ops import merkle
+
+    tree = merkle.build_tree(gf64.from_u64(R.gl_input(5, (8, 64))), cap)
+    paths = {}
+    for got_cap, got_paths in _card_values(card_ranks, "poseidon_tree", cap):
+        assert got_cap == gf64.to_u64(tree.cap).T.tolist()
+        paths.update(got_paths)
+    assert paths == {i: tree.path(i) for i in range(64)}
+
+
+@pytest.mark.parametrize("n", [64, 48])
+def test_data_commitment_sharded_on_the_card(card_ranks, n):
+    import torch_parallel_ranks as R
+    from blobstreamx_tpu_torch.circuits.data_commitment import data_commitment_device
+
+    want = data_commitment_device(*R.tuple_input(n), "cpu")
+    assert all(v == want for v in _card_values(card_ranks, "data_commitment", n))
+    if n == 64:
+        assert all(v == want for v in _card_values(card_ranks, "tuple_tree_root", 64))
+
+
+@pytest.mark.parametrize("check,case", [("msm_sharded", "n1"), ("msm_sharded", "n5"), ("msm_sharded", "n8"),
+                                        ("msm_bitwise_sharded", 3), ("msm_bitwise_sharded", 17)])
+def test_msm_sharded_on_the_card(card_ranks, check, case):
+    import torch_parallel_ranks as R
+    from blobstreamx_tpu_torch.golden import ed25519 as ged
+
+    n, c = R.MSM_CASES[case] if check == "msm_sharded" else (case, 1)
+    want = _golden_msm(*R.msm_input(n, c))
+    assert all(ged.point_equal(v, want) for v in _card_values(card_ranks, check, case))
+
+
+def test_prove_skip_mesh_on_the_card_equals_the_cpu(card_ranks):
+    import torch_parallel_ranks as R
+
+    want = R.prove_skip_bytes(R.small_witness(), device="cpu")
+    assert all(v == want for v in _card_values(card_ranks, "prove_skip", "default"))
+
+
+def test_mesh_stark_in_many_rounds_on_the_card_equals_the_cpu(card_ranks):
+    """The toy AIR through prove_streaming(col_chunk=8, mesh=) on the two
+    ranks sharing the card: the single-device proof on the CPU, byte for byte."""
+    import torch_parallel_ranks as R
+    from blobstreamx_tpu_torch.prover import serialize, stark
+    from blobstreamx_tpu_torch.prover.config import StarkConfig
+
+    trace, publics, aux = R.toy_case()
+    want = serialize.stark_proof_to_bytes(
+        stark.prove(R.toy_air(), trace, publics, StarkConfig(**R.TOY_CFG), aux=aux, device="cpu"))
+    assert all(v == want for v in _card_values(card_ranks, "stark", "toy_air_chunk8"))
