@@ -3,7 +3,8 @@
 // Shared by the NTT and Poseidon kernels. gl_add, gl_sub and gl_mul take and
 // return canonical values in [0, p); gl_reduce128_nc returns a u64 that is
 // only congruent mod p, for callers that take any u64 (gl_mul's inputs are
-// any u64). Reduction uses 2^64 ≡ EPS = 2^32 - 1 and 2^96 ≡ -1 (mod p).
+// any u64), and so does gl_add_nc for any a and b < p (as gl_sub does for
+// such operands). Reduction uses 2^64 ≡ EPS = 2^32 - 1 and 2^96 ≡ -1 (mod p).
 //
 // The carries are taken from the hardware's carry flag (PTX add.cc / addc,
 // sub.cc / subc on the 32-bit halves) instead of 64-bit compares, each of
@@ -43,8 +44,34 @@ __device__ __forceinline__ uint64_t gl_add(uint64_t a, uint64_t b) {
   return r;
 }
 
+// a + b mod p as a u64, not reduced to [0, p), for any a and b < p: the
+// sum s, plus EPS when it carries out of 64 bits (then s < p, so s + EPS
+// does not carry again); 6 PTX instructions against gl_add's 9. (The
+// carry of an add.cc must not feed a subc: ptxas takes the flag of a
+// subtraction as "no borrow", so subc.u32 c, 0, 0 after an add.cc gives
+// EPS without a carry, not with one, as measured on an H100.)
+__device__ __forceinline__ uint64_t gl_add_nc(uint64_t a, uint64_t b) {
+  uint64_t r;
+  asm("{\n\t"
+      ".reg .u32 a0, a1, b0, b1, c;\n\t"
+      "mov.b64 {a0, a1}, %1;\n\t"
+      "mov.b64 {b0, b1}, %2;\n\t"
+      "add.cc.u32 a0, a0, b0;\n\t"
+      "addc.cc.u32 a1, a1, b1;\n\t"
+      "addc.u32 c, 0, 0;\n\t"
+      "neg.s32 c, c;\n\t"  // EPS on a carry, else 0
+      "add.cc.u32 a0, a0, c;\n\t"
+      "addc.u32 a1, a1, 0;\n\t"
+      "mov.b64 %0, {a0, a1};\n\t"
+      "}"
+      : "=l"(r)
+      : "l"(a), "l"(b));
+  return r;
+}
+
 __device__ __forceinline__ uint64_t gl_sub(uint64_t a, uint64_t b) {
   // d = a - b; on a borrow d = a - b + 2^64 > EPS, and a - b + p = d - EPS
+  // (for any a and b < p: then the result is only congruent, a u64)
   uint64_t r;
   asm("{\n\t"
       ".reg .u32 a0, a1, b0, b1, c;\n\t"
@@ -108,13 +135,16 @@ __device__ __forceinline__ uint64_t gl_mul_nc(uint64_t a, uint64_t b) {
 // carry chain, so that ptxas issues one IMAD.WIDE.U32 with carry in and out
 // per product instead of the compiler's 64-bit product and __umul64hi; the
 // non-.cc madc never carries out (a word of the product, or hi(a0*b1) + 1).
-// Then gl_reduce128_nc's reduction, and r - p = r + EPS - 2^64 where
-// r + EPS carries.
+// Then gl_reduce128_nc's reduction, its r2 * EPS term added by a mad.lo.cc /
+// madc.hi.cc pair, which runs on the multiply pipe, not the integer add
+// pipe that the rest of a butterfly keeps busy (3 % off the tile kernel at
+// (2048, 2048) and 2.4 % off the four-step at 2^22 on an H100,
+// kernel_report.py --probe, PERF.md),
+// and r - p = r + EPS - 2^64 where r + EPS carries.
 __device__ __forceinline__ uint64_t gl_mul(uint64_t a, uint64_t b) {
   uint64_t r;
   asm("{\n\t"
       ".reg .u32 a0, a1, b0, b1, r0, r1, r2, r3, u0, u1, c;\n\t"
-      ".reg .u64 u;\n\t"
       ".reg .pred q;\n\t"
       "mov.b64 {a0, a1}, %1;\n\t"
       "mov.b64 {b0, b1}, %2;\n\t"
@@ -127,15 +157,13 @@ __device__ __forceinline__ uint64_t gl_mul(uint64_t a, uint64_t b) {
       "addc.u32 r3, 0, 0;\n\t"
       "mad.lo.cc.u32 r2, a1, b1, r2;\n\t"
       "madc.hi.u32 r3, a1, b1, r3;\n\t"
-      "mul.wide.u32 u, r2, 0xffffffff;\n\t"
-      "mov.b64 {u0, u1}, u;\n\t"
       "sub.cc.u32 r0, r0, r3;\n\t"
       "subc.cc.u32 r1, r1, 0;\n\t"
       "subc.u32 c, 0, 0;\n\t"
       "sub.cc.u32 r0, r0, c;\n\t"
       "subc.u32 r1, r1, 0;\n\t"
-      "add.cc.u32 r0, r0, u0;\n\t"
-      "addc.cc.u32 r1, r1, u1;\n\t"
+      "mad.lo.cc.u32 r0, r2, 0xffffffff, r0;\n\t"
+      "madc.hi.cc.u32 r1, r2, 0xffffffff, r1;\n\t"
       "addc.u32 c, 0, 0;\n\t"
       "neg.s32 c, c;\n\t"
       "add.cc.u32 r0, r0, c;\n\t"

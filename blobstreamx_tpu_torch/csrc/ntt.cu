@@ -38,10 +38,11 @@
 // tiles of 8 columns and 256 threads a block a few per cent longer, and the
 // power table staged in shared memory once per block was within 2 % at
 // (2048, 2048) but 18 % slower at (16384, 3). Built for sm_90a the whole
-// kernel at (2048, 2048) forward is at most 59.7 SASS instructions a
-// butterfly at 64 registers a thread (62.7 with the compiler's 64-bit
-// product in gl_mul), against 112.9 for the column-per-block kernel it
-// replaced (kernel_report.py counts them).
+// kernel at (2048, 2048) forward is at most 59.15 SASS instructions a
+// butterfly at 52 registers a thread (59.7 before gl_mul's r2 * EPS term
+// moved to the multiply pipe, 62.7 with the compiler's 64-bit product in
+// gl_mul), against 112.9 for the column-per-block kernel it replaced
+// (kernel_report.py counts them).
 //
 // Columns longer than NTT_SMEM_MAX_N (the SHA tier's 2^18 and 2^21 column
 // chunks) do not fit shared memory whole, so the log n stages run in passes
@@ -95,8 +96,10 @@ __host__ __device__ __forceinline__ int ntt_pad(int i) { return i + (i >> 3); }
 extern __shared__ uint64_t ntt_smem[];
 
 // where a pass reads and writes: the (lo, hi) rows of device memory (read
-// bit-reversed), the tile in shared memory, or the u64 intermediate
-enum { NTT_SMEM = 0, NTT_LOHI = 1, NTT_U64 = 2 };
+// bit-reversed), the tile in shared memory, the u64 intermediate, or (a
+// store only) the four-step's: each element times its twiddle, the tile
+// transposed into the u64 intermediate (see four_step_first_kernel)
+enum { NTT_SMEM = 0, NTT_LOHI = 1, NTT_U64 = 2, NTT_FOUR_STEP = 3 };
 
 struct NttTile {
   const int64_t* lo_in;
@@ -109,6 +112,13 @@ struct NttTile {
   int log_tile;        // stages of this pass: the tile holds 2^log_tile positions
   int s0, low, high;   // a long-column pass: first stage, the tile's fixed bits
   uint64_t n_inv;
+  // four_step_first_kernel: log2 of the columns c, and the twiddle tables
+  // w^(e >> log_h << log_h) (times n^-1 for the inverse) and w^(e mod 2^log_h)
+  int log_c = 0, log_h = 0;
+  const uint64_t* tw_high = nullptr;
+  const uint64_t* tw_low = nullptr;
+  int threads = 0;    // the block's threads where fixed at compile time, else 0 (blockDim.x)
+  bool lazy = false;  // sums not reduced to [0, p) between stages (ntt_radix)
 };
 
 // Device-memory row of tile position i: the tile kernel's tile is the whole
@@ -121,6 +131,10 @@ __device__ __forceinline__ int ntt_row(const NttTile& t, int i) {
 // DIT stages st .. st+R-1 on the 2^R elements v[j] = x[base + j * 2^st] of
 // one group, k = base mod 2^st (st, base and k in the whole column's
 // positions). FIRST (st = 0, so k = 0) skips the multiplies by w^0 = 1.
+// With t.lazy the sums are gl_add_nc's, any u64 congruent to the value:
+// each butterfly's u = w * x is canonical (gl_mul), as is every element
+// read from device memory; where FIRST skips the multiply after stage 0,
+// u is made canonical first. The store makes the output canonical.
 template <int R, bool FIRST>
 __device__ __forceinline__ void ntt_radix(uint64_t v[8], const NttTile& t, int st, int k) {
   const int log_n = t.log_n;
@@ -137,9 +151,10 @@ __device__ __forceinline__ void ntt_radix(uint64_t v[8], const NttTile& t, int s
     for (int j = 0; j < (1 << R); j++) {
       if (j & h) continue;
       const int m = j & (h - 1);
-      const uint64_t u = FIRST && m == 0 ? v[j + h] : gl_mul(v[j + h], w[m]);
+      uint64_t u = FIRST && m == 0 ? v[j + h] : gl_mul(v[j + h], w[m]);
+      if (t.lazy && FIRST && m == 0 && q > 0) u = gl_canonical(u);
       const uint64_t x0 = v[j];
-      v[j] = gl_add(x0, u);
+      v[j] = t.lazy ? gl_add_nc(x0, u) : gl_add(x0, u);
       v[j + h] = gl_sub(x0, u);
     }
   }
@@ -154,7 +169,8 @@ template <int R, int SRC, int DST, bool SPLIT>
 __device__ __forceinline__ void ntt_pass(const NttTile& t, int st) {
   const int ct = 1 << t.log_ct;
   const int groups = ct << (t.log_tile - R);
-  for (int g = threadIdx.x; g < groups; g += blockDim.x) {
+  const int stride = t.threads ? t.threads : (int)blockDim.x;
+  for (int g = threadIdx.x; g < groups; g += stride) {
     const int col = g & (ct - 1);
     if (col >= t.cw) continue;
     const int gi = g >> t.log_ct;
@@ -173,20 +189,30 @@ __device__ __forceinline__ void ntt_pass(const NttTile& t, int st) {
         v[j] = ntt_smem[ntt_pad(i) * ct + col];
       }
     }
+    // the column's first stages: read from device memory, unless a later pass of a long column
+    constexpr bool first = SRC == NTT_LOHI || (SRC == NTT_U64 && !SPLIT);
     if (SPLIT)
-      ntt_radix<R, SRC == NTT_LOHI>(v, t, t.s0 + st, (k << t.s0) | t.low);
+      ntt_radix<R, first>(v, t, t.s0 + st, (k << t.s0) | t.low);
     else
-      ntt_radix<R, SRC == NTT_LOHI>(v, t, st, k);
+      ntt_radix<R, first>(v, t, st, k);
 #pragma unroll
     for (int j = 0; j < (1 << R); j++) {
       const int i = base + (j << st);
       if (DST == NTT_LOHI) {
-        const uint64_t x = t.inverse ? gl_mul(v[j], t.n_inv) : v[j];
+        const uint64_t x = t.inverse ? gl_mul(v[j], t.n_inv) : t.lazy ? gl_canonical(v[j]) : v[j];
         const size_t dst = (size_t)ntt_row<SPLIT>(t, i) * t.c + t.col0 + col;
         t.lo_out[dst] = (int64_t)(x & GL_EPS);
         t.hi_out[dst] = (int64_t)(x >> 32);
       } else if (DST == NTT_U64) {
         t.buf[(size_t)ntt_row<SPLIT>(t, i) * t.c + t.col0 + col] = v[j];
+      } else if (DST == NTT_FOUR_STEP) {
+        // k1 = i, i2 = col0 + col: times W[k1, i2] = w^e, e = k1 * i2 < n,
+        // into row bitrev(i2) of the (n2, n1) intermediate
+        const int i2 = t.col0 + col;
+        const unsigned e = (unsigned)i * (unsigned)i2;
+        const uint64_t w = gl_mul_nc(__ldg(&t.tw_high[e >> t.log_h]),
+                                     __ldg(&t.tw_low[e & ((1u << t.log_h) - 1)]));
+        t.buf[((size_t)bitrev(i2, t.log_c) << t.log_n) + i] = gl_mul(v[j], w);
       } else {
         ntt_smem[ntt_pad(i) * ct + col] = v[j];
       }
@@ -252,6 +278,42 @@ __global__ void __launch_bounds__(NTT_THREADS) ntt_tile_kernel(
 
 static size_t ntt_tile_smem(int log_n, int log_ct) {
   return ntt_passes(log_n) > 1 ? ((size_t)ntt_pad(1 << log_n) << log_ct) * sizeof(uint64_t) : 0;
+}
+
+// The launch of a whole-column kernel over (2^log_n, c): the column tile
+// (2^log_ct columns, at most NTT_TILE_COLS and no more than c, cut until it
+// fits the block's shared memory), its shared memory, and enough threads for
+// the widest radix-8 pass, in whole warps. ntt_smem_limit raises a kernel's
+// dynamic shared-memory limit where the tile needs more than 48 KB.
+struct NttLaunch {
+  int log_ct;
+  size_t smem;
+  int threads;
+  unsigned tiles;
+};
+
+static cudaError_t ntt_tile_launch(int log_n, int c, NttLaunch* l) {
+  int dev, max_smem;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return e;
+  l->log_ct = 0;
+  while ((2 << l->log_ct) <= NTT_TILE_COLS && (2 << l->log_ct) <= c &&
+         ntt_tile_smem(log_n, l->log_ct + 1) <= (size_t)max_smem)
+    l->log_ct++;
+  l->smem = ntt_tile_smem(log_n, l->log_ct);
+  if (l->smem > (size_t)max_smem) return cudaErrorInvalidValue;
+  const int groups = (1 << l->log_ct) << (log_n > 3 ? log_n - 3 : 0);
+  l->threads = groups >= NTT_THREADS ? NTT_THREADS : (groups + 31) / 32 * 32;
+  l->tiles = (unsigned)((c + (1 << l->log_ct) - 1) >> l->log_ct);
+  return cudaSuccess;
+}
+
+static cudaError_t ntt_smem_limit(const void* kernel, size_t smem) {
+  return smem > 48 * 1024
+             ? cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)
+             : cudaSuccess;
 }
 
 // One pass of a long column: stages s0 .. s0+log_tile-1. A block's column
@@ -329,22 +391,12 @@ extern "C" int bsx_ntt_cols(const int64_t* lo_in, const int64_t* hi_in,
     e = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (e != cudaSuccess) return (int)e;
   if (n <= NTT_SMEM_MAX_N) {
-    int log_ct = 0;
-    while ((2 << log_ct) <= NTT_TILE_COLS && (2 << log_ct) <= c &&
-           ntt_tile_smem(log_n, log_ct + 1) <= (size_t)max_smem)
-      log_ct++;
-    const size_t smem = ntt_tile_smem(log_n, log_ct);
-    if (smem > 48 * 1024) {
-      e = cudaFuncSetAttribute(ntt_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-      if (e != cudaSuccess) return (int)e;
-    }
-    // enough threads for the widest radix-8 pass, in whole warps
-    const int groups = (1 << log_ct) << (log_n > 3 ? log_n - 3 : 0);
-    const int threads = groups >= NTT_THREADS ? NTT_THREADS : (groups + 31) / 32 * 32;
-    const unsigned tiles = (unsigned)((c + (1 << log_ct) - 1) >> log_ct);
-    ntt_tile_kernel<<<tiles, threads, smem, st>>>(lo_in, hi_in, lo_out, hi_out, tw,
-                                                  log_n, c, log_ct, inverse, n_inv);
+    NttLaunch l;
+    e = ntt_tile_launch(log_n, c, &l);
+    if (e == cudaSuccess) e = ntt_smem_limit((const void*)ntt_tile_kernel, l.smem);
+    if (e != cudaSuccess) return (int)e;
+    ntt_tile_kernel<<<l.tiles, l.threads, l.smem, st>>>(lo_in, hi_in, lo_out, hi_out, tw,
+                                                        log_n, c, l.log_ct, inverse, n_inv);
     e = cudaGetLastError();
     if (e == cudaSuccess) ntt_launches++;
     return (int)e;
@@ -464,5 +516,143 @@ extern "C" int bsx_twiddle_transpose(const int64_t* lo_in, const int64_t* hi_in,
   twiddle_transpose_kernel<<<dim3(gx, gy), dim3(TT_TILE, TT_ROWS), 0,
                              (cudaStream_t)stream>>>(lo_in, hi_in, lo_out,
                                                      hi_out, tw, log_n1, log_n2);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The four-step NTT of one vector in two launches.
+//
+// Replaces ntt_four_step_pallas and ntt_four_step_pallas_split
+// (blobstreamx_tpu/ops/ntt.py, lines 374 and 289; ntt_four_step, lines
+// 449-477, is the reference): a length-n vector, n = n1 * n2, as the
+// row-major (n1, n2) matrix; A: column NTTs of length n1; B: times
+// W[k1, i2] = w^(+-k1*i2); C: transposed, column NTTs of length n2; the
+// row-major (n2, n1) result is in natural order.
+//
+// Bound: bytes. The function reads and writes each element once, 32 B in
+// the (lo, hi) int64 layout, 0.040 ms at 2^22 on an H100 at 3.35 TB/s;
+// its (n/2) log n butterflies and n twiddle multiplies take 0.012 ms at
+// 16 operations a product over 67 T/s. Three full passes in the (lo, hi)
+// layout (two tile-kernel launches and twiddle_transpose_kernel) move 96 B
+// an element.
+//
+// Design: two launches of the tile kernel's machinery (NttTile, ntt_stages)
+// with one u64 intermediate of n words between them, 16 + 8 + 8 + 16 = 48 B
+// an element:
+//   four_step_first_kernel: a block per tile of CT adjacent columns i2 of
+//     the (n1, n2) input, read bit-reversed in (lo, hi) as the tile kernel
+//     does; all log n1 stages in registers and shared memory; the last
+//     radix pass multiplies each element by its twiddle as it stores it
+//     (step B) and stores the tile transposed: column i2 becomes row
+//     bitrev(i2) of the (n2, n1) intermediate, one contiguous run of n1 u64.
+//     The twiddle w^e, e = k1 * i2, is the product of two small tables
+//     read through the read-only cache, w^(e - e mod 2^h) and w^(e mod 2^h)
+//     with h = ceil(log n / 2), of at most 2^14 entries each (16 KB each
+//     at 2^22). For the inverse the first table holds n^-1 times its
+//     powers: the inverse's whole scale, n1^-1 of step A and n2^-1 of
+//     step C (which, linear, takes it on its input), costs no multiply.
+//   four_step_last_kernel: the tile kernel's pass over the intermediate,
+//     CT columns k1 of every row (8 B an element: CT = 4 is one 32 B
+//     sector a row), read in order (the first launch wrote the rows
+//     bit-reversed), all log n2 stages, and the (lo, hi) rows of the
+//     (n2, n1) output in natural order.
+// Both keep their sums lazy (NttTile.lazy: gl_add_nc, made canonical at the
+// store), and at config 4's shapes (columns of 2^10 and 2^11 in 4-column
+// tiles) run instances with every index and loop trip fixed at compile time.
+// Both are the tile kernel's shapes: n1, n2 <= NTT_SMEM_MAX_N, so n <= 2^28.
+//
+// Timed on an H100 at 2^22 by kernel_report.py against --probe copies of
+// this file with one choice undone (PERF.md): the pair takes 0.1395 ms
+// forward, 0.1468 without the lazy sums, 0.1427 with the generic
+// instances, 0.1429 with gl_mul's former reduction (gl64.cuh), and 0.1285
+// without the twiddle multiply; the inverse, whose scale rides in the
+// first table, takes what the forward does. By its instruction mix the
+// pair is bound by the integer pipe (inferred: no stall profile can be
+// taken there): a butterfly is at most 48.4 SASS instructions, most of
+// them IADD3, SEL, LOP3 and the IMADs of the products, which an SM
+// executes at 64 a clock against 128 for float32; the 48 B an element the
+// pair moves take 0.060 ms at 3.35 TB/s.
+// ---------------------------------------------------------------------------
+
+// LOG_T and LOG_CT fix the column length and the column tile at compile
+// time (with NTT_THREADS threads), so that every index, pass and loop trip
+// of the transform is a constant; -1 takes them from the arguments.
+template <int LOG_T, int LOG_CT>
+__global__ void __launch_bounds__(NTT_THREADS, 2) four_step_first_kernel(
+    const int64_t* __restrict__ lo_in, const int64_t* __restrict__ hi_in, uint64_t* __restrict__ buf,
+    const uint64_t* __restrict__ tw, const uint64_t* __restrict__ tw_high,
+    const uint64_t* __restrict__ tw_low, int log_n1, int log_n2, int log_ct) {
+  const int log_t = LOG_T >= 0 ? LOG_T : log_n1;
+  const int log_tc = LOG_CT >= 0 ? LOG_CT : log_ct;
+  const int col0 = blockIdx.x << log_tc;
+  const NttTile t{lo_in, hi_in, nullptr, nullptr, buf, tw, log_t, 1 << log_n2, col0, log_tc,
+                  1 << log_tc, 0, log_t, 0, 0, 0, 1, log_n2, (log_t + log_n2 + 1) / 2,
+                  tw_high, tw_low, LOG_T >= 0 ? NTT_THREADS : 0, true};
+  ntt_stages<NTT_LOHI, NTT_FOUR_STEP, false>(t);
+}
+
+template <int LOG_T, int LOG_CT>
+__global__ void __launch_bounds__(NTT_THREADS, 2) four_step_last_kernel(
+    const uint64_t* __restrict__ buf, int64_t* __restrict__ lo_out, int64_t* __restrict__ hi_out,
+    const uint64_t* __restrict__ tw, int log_n1, int log_n2, int log_ct) {
+  const int log_t = LOG_T >= 0 ? LOG_T : log_n2;
+  const int log_tc = LOG_CT >= 0 ? LOG_CT : log_ct;
+  const int col0 = blockIdx.x << log_tc;
+  const NttTile t{nullptr, nullptr, lo_out, hi_out, const_cast<uint64_t*>(buf), tw, log_t,
+                  1 << log_n1, col0, log_tc, 1 << log_tc, 0, log_t, 0, 0, 0, 1,
+                  0, 0, nullptr, nullptr, LOG_T >= 0 ? NTT_THREADS : 0, true};
+  ntt_stages<NTT_U64, NTT_LOHI, false>(t);
+}
+
+// n1 and n2 of the four-step: columns of the tile kernel
+static bool four_step_fits(int log_n) { return log_n >= 0 && log_n < 31 && (1 << log_n) <= NTT_SMEM_MAX_N; }
+
+// The instance for a column of 2^log_t in tiles of 2^log_ct columns: fixed
+// at config 4's 2^22 ((2048, 2048): 2^11 both launches) and at 2^21 (2^10
+// then 2^11), with 4-column tiles and NTT_THREADS threads; else generic.
+template <class K>
+static K four_step_instance(int log_t, const NttLaunch& l, K k10, K k11, K generic) {
+  if (l.log_ct != 2 || l.threads != NTT_THREADS) return generic;
+  return log_t == 11 ? k11 : log_t == 10 ? k10 : generic;
+}
+
+// Step A and B of the four-step of a length 2^(log_n1 + log_n2) vector:
+// the (n1, n2) (lo, hi) input to the (n2, n1) u64 intermediate `buf`, rows
+// bit-reversed. `tw` is the length-n1 power table (power_table(log_n1),
+// inverse for the inverse); with h = ceil(log n / 2), `tw_high` holds
+// w^(j * 2^h) (times n^-1 for the inverse) for j < n / 2^h and `tw_low`
+// w^j for j < 2^h, w the n-th root of unity (its inverse for the inverse).
+// Returns the CUDA error code of the launch (0 on success).
+extern "C" int bsx_four_step_first(const int64_t* lo_in, const int64_t* hi_in, uint64_t* buf,
+                                   const uint64_t* tw, const uint64_t* tw_high,
+                                   const uint64_t* tw_low, int log_n1, int log_n2, void* stream) {
+  if (!four_step_fits(log_n1) || !four_step_fits(log_n2)) return (int)cudaErrorInvalidValue;
+  NttLaunch l;
+  cudaError_t e = ntt_tile_launch(log_n1, 1 << log_n2, &l);
+  if (e != cudaSuccess) return (int)e;
+  auto kernel = four_step_instance(log_n1, l, four_step_first_kernel<10, 2>,
+                                   four_step_first_kernel<11, 2>, four_step_first_kernel<-1, -1>);
+  e = ntt_smem_limit((const void*)kernel, l.smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<l.tiles, l.threads, l.smem, (cudaStream_t)stream>>>(lo_in, hi_in, buf, tw, tw_high, tw_low,
+                                                                log_n1, log_n2, l.log_ct);
+  return (int)cudaGetLastError();
+}
+
+// Step C: the intermediate to the (n2, n1) (lo, hi) output, natural order.
+// `tw` is the length-n2 power table (the inverse's for the inverse, whose
+// scale the first launch applied).
+extern "C" int bsx_four_step_last(const uint64_t* buf, int64_t* lo_out, int64_t* hi_out,
+                                  const uint64_t* tw, int log_n1, int log_n2, void* stream) {
+  if (!four_step_fits(log_n1) || !four_step_fits(log_n2)) return (int)cudaErrorInvalidValue;
+  NttLaunch l;
+  cudaError_t e = ntt_tile_launch(log_n2, 1 << log_n1, &l);
+  if (e != cudaSuccess) return (int)e;
+  auto kernel = four_step_instance(log_n2, l, four_step_last_kernel<10, 2>,
+                                   four_step_last_kernel<11, 2>, four_step_last_kernel<-1, -1>);
+  e = ntt_smem_limit((const void*)kernel, l.smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<l.tiles, l.threads, l.smem, (cudaStream_t)stream>>>(buf, lo_out, hi_out, tw, log_n1, log_n2,
+                                                                l.log_ct);
   return (int)cudaGetLastError();
 }

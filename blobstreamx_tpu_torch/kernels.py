@@ -39,6 +39,8 @@ SIGNATURES = {
         "bsx_ntt_long_plan": [_I, _I, _P],
         "bsx_ntt_launch_count": [],
         "bsx_twiddle_transpose": [_P, _P, _P, _P, _P, _I, _I, _P],
+        "bsx_four_step_first": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+        "bsx_four_step_last": [_P, _P, _P, _P, _I, _I, _P],
     },
     "poseidon": {
         "bsx_poseidon_set_round_constants": [_P],
@@ -53,8 +55,10 @@ SIGNATURES = {
 }
 
 # "ntt" counts the tile kernel (n <= 2^14), "ntt_multi" the long-column path
-# (one launch a pass of shared-memory stages, two passes up to 2^22), once a call
-launches = {"ntt": 0, "ntt_multi": 0, "twiddle_transpose": 0, "poseidon": 0, "edwards_add": 0, "pow_chain": 0}
+# (one launch a pass of shared-memory stages, two passes up to 2^22), once a call;
+# "four_step_first" and "four_step_last" the two launches of the four-step NTT up to 2^28
+launches = {"ntt": 0, "ntt_multi": 0, "twiddle_transpose": 0, "four_step_first": 0, "four_step_last": 0,
+            "poseidon": 0, "edwards_add": 0, "pow_chain": 0}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

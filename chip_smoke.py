@@ -22,7 +22,7 @@ result):
      polynomial's (8, 1), and at the edges of their designs: Poseidon at a
      ragged batch ((12, 16383), (12, 1)), the NTT at a ragged last column
      tile (2048, 2050), one-column tiles (2^14, 3), n = 1 (1, 4), both
-     passes of an odd-log four-step ((1024, 2048), (2048, 1024)) and the
+     passes of an odd-log column transform ((1024, 2048), (2048, 1024)) and the
      256-validator StepAir's trace INTT (256, 4) and LDE (2048, 4), the NTT's
      long-column path (columns longer than 2^14, a launch a pass of
      shared-memory stages) at the SHA tier's shapes (the trace chunk's LDE
@@ -41,8 +41,12 @@ result):
      the Edwards add at config 5's lane counts 64, 1024, 4096 and 32768,
      each with edge lanes (an identity operand, a doubling, p + (-p),
      points of order 2 and 4, coordinates in [p, 2^256)), and pow22523 at
-     64 and 4096 lanes; mismatches (must be 0), the kernel's and the
-     plain version's time by CUDA events, and the
+     64 and 4096 lanes, and the four-step NTT's two launches
+     (four_step_first_kernel, four_step_last_kernel: log n 1, 2, 21 and 22,
+     that is (1, 2), (2, 2), (1024, 2048) / (2048, 1024) and (2048, 2048),
+     both ways, the first one's u64 intermediate through its (lo, hi)
+     split) with their device time; mismatches (must be 0), the kernel's
+     and the plain version's time by CUDA events, and the
      kernel's bound from its counted bytes and operations (the
      twiddle-transpose also beside a bare transpose copy, the sqn chain
      timed at k = 1, 5 and 50, and an empty kernel's launch through the
@@ -67,17 +71,21 @@ result):
      for one more warm config-4 run at the end of phase 7;
   7. config 4 (benches/configs.py's config4: one 2^22 polynomial, numpy
      seed 0): a cold and a warm run of the path, the launches and peak
-     device memory of the warm one (ntt, twiddle_transpose and poseidon must
-     each launch) — the four-step NTT forward and inverse, a low-degree
+     device memory of the warm one (four_step_first, four_step_last, ntt and
+     poseidon must each launch, the four-step kernels once each a four-step
+     call, twiddle_transpose never) — the four-step NTT forward and
+     inverse, a low-degree
      codeword (2^19 coefficients, coset_scale, four-step) and its FRI proof
      (default FriConfig) — then the checks: four-step == its plain version
      == ntt_cols of the (2^22, 1) column, inverse(forward) == identity, the
      codeword == lde_cols, fri_verify accepts the proof and rejects one
      changed query pair, and the 2^21 four-step (an odd log n) forward and
-     inverse == their plain versions; then CUDA-event times of the four-step (16
-     iterations each way, butterflies/s) and of its plain version, of the
-     column path and of one
-     fold of the codeword. One JSON line {"config4": {...}}.
+     inverse == their plain versions; the SHA-256 of the FRI proof, which
+     must equal CONFIG4_FRI_PROOF_SHA256 (the three-launch four-step's);
+     then CUDA-event times of the four-step (16 iterations each way,
+     butterflies/s) and its device time under torch.profiler, of its plain
+     version, of the column path and of one fold of the codeword. One JSON
+     line {"config4": {...}}.
   8. config 5 at the SHA-256 tier: first the memory fit behind
      stark_stream.AUTO_STREAM_BYTES (stark.prove's peak device memory on
      Sha256Air traces of 2^12, 2^13 and 2^14 rows against
@@ -250,12 +258,17 @@ EDWARDS_ADD_MULS = 9
 
 CONFIG5 = dict(seed=7, n_headers=1024, n_validators=32, trusted=1, target=1024)
 CONFIG4 = dict(seed=0, log_n=22, fold_beta=0x123456789ABCDEF, iters=16)
+# SHA-256 of config 4's FRI proof (fri_proof_sha256) from the four-step's three-launch design (NTT kernel,
+# twiddle-transpose, NTT kernel), which the two-launch design must keep
+CONFIG4_FRI_PROOF_SHA256 = "aaa9be3e9a7d2595f6684120a8253ccb2abd4c19514437c0d3bd1ec1b6d715e1"
+# phase 3: the four-step kernels at log n 1, 2, 21 (odd: (1024, 2048), then (2048, 1024)) and 22
+FOUR_STEP_CHECK_LOGS = (1, 2, 21, 22)
 # phase 10: config 5's chain generator and validator width, cut in depth to 192 headers
 CONFIG5_FULL = dict(seed=7, n_headers=192, n_validators=32, trusted=1, target=192, shard_blocks=(4096, 512))
 STEP_WIDE = dict(seed=7, n_headers=2, n_validators=256, prev_height=1)  # config 3's 256 signatures
 PATH_KERNELS = {
     "config5": ("ntt", "poseidon", "edwards_add", "pow_chain"),
-    "config4": ("ntt", "twiddle_transpose", "poseidon"),
+    "config4": ("four_step_first", "four_step_last", "ntt", "poseidon"),
     "config5_sha": ("ntt", "ntt_multi", "poseidon", "edwards_add", "pow_chain"),
     "step": ("ntt", "poseidon", "edwards_add", "pow_chain"),
     "config5_full": ("ntt", "ntt_multi", "poseidon", "edwards_add", "pow_chain"),
@@ -358,6 +371,30 @@ def ntt_launches(fn, tries: int = 5) -> tuple[int, float | None]:
     return launched, None
 
 
+def device_ms_of(fn, name: str, kernels_per_call: int, reps: int = 10, tries: int = 5) -> float | None:
+    """The device time in ms of one call of `fn`, from `reps` calls under
+    torch.profiler: each of its `kernels_per_call` kernels whose name holds
+    `name` (each launched once a call) by its mean duration, so that a
+    record the profiler drops does not count as a shorter call; taken again
+    when a kernel is missing or was recorded in fewer than half the calls,
+    None if none of `tries` recorded them."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and name in e.key]
+        if len(rows) == kernels_per_call and all(2 * e.count >= reps for e in rows):
+            return sum(dev_us(e) / e.count for e in rows) / 1e3
+    return None
+
+
 def max_abs(a, b) -> float:
     return float((a - b).abs().max().item()) if a.numel() else 0.0
 
@@ -447,11 +484,11 @@ def check_ntt(rng, dev):
         ((32, 8), True, "trace INTT"),
         ((256, 8), False, "trace LDE"),
         ((256, 2), True, "quotient coset INTT"),
-        ((2048, 2048), False, "four-step pass at 2^22"),
-        ((2048, 2048), True, "four-step inverse pass at 2^22"),
+        ((2048, 2048), False, "2^22 as a (2048, 2048) matrix"),
+        ((2048, 2048), True, "2^22 as a (2048, 2048) matrix, inverse"),
         ((8, 1), True, "FRI final-poly coset INTT"),
-        ((1024, 2048), False, "odd-log four-step first pass at 2^21"),
-        ((2048, 1024), True, "odd-log four-step inverse second pass at 2^21"),
+        ((1024, 2048), False, "2^21 as a (1024, 2048) matrix"),
+        ((2048, 1024), True, "2^21 as a (2048, 1024) matrix, inverse"),
         ((2048, 2050), False, "ragged last column tile"),
         ((1 << 14, 3), True, "one-column tiles at the largest shared-memory n"),
         ((1, 4), False, "n = 1"),
@@ -613,6 +650,60 @@ def check_twiddle_transpose(rng, dev):
     return rows
 
 
+def _four_step_cases(rng, which: str):
+    """One of the four-step's two launches against its plain version at
+    FOUR_STEP_CHECK_LOGS, both ways: "first" (four_step_first_kernel, its
+    u64 intermediate read through gl_from_scratch) or "last"
+    (four_step_last_kernel, fed scratch_from_gl of the plain input)."""
+    from blobstreamx_tpu_torch.fields import gf64
+    from blobstreamx_tpu_torch.ops import ntt
+
+    rows = []
+    for log_n in FOUR_STEP_CHECK_LOGS:
+        n1, n2 = ntt.four_step_shape(log_n)
+        n = n1 * n2
+        for inverse in (False, True):
+            if which == "first":
+                shape, log_t, c = (n1, n2), n1.bit_length() - 1, n2
+                m = gf64.from_u64(gl_values(rng, shape), "cuda")
+                call = lambda: ntt._four_step_first_cuda(m, log_n, inverse)  # noqa: E731
+                plain = lambda: ntt.four_step_first_plain(m, log_n, inverse)  # noqa: E731
+                got = ntt.gl_from_scratch(call())
+                # (lo, hi) in, u64 out, the power tables; the butterflies and one twiddle multiply an element
+                # (which carries the inverse's n^-1)
+                tables = sum(t.size for t in ntt.four_step_twiddle_tables(log_n, inverse))
+                moved, muls = 24 * n + 8 * (max(n1 // 2, 1) + tables), (n1 // 2) * log_t * c + n
+            else:
+                shape, log_t, c = (n2, n1), n2.bit_length() - 1, n1
+                m = gf64.from_u64(gl_values(rng, shape), "cuda")
+                buf = ntt.scratch_from_gl(m)
+                call = lambda: ntt._four_step_last_cuda(buf, log_n, inverse)  # noqa: E731
+                plain = lambda: ntt.four_step_last_plain(m, log_n, inverse)  # noqa: E731
+                got = call()
+                moved, muls = 24 * n + 8 * max(n2 // 2, 1), (n2 // 2) * log_t * c
+            mism, err = gl_mismatch(got, plain())
+            ms = time_ms(call, 20)
+            dev_ms = device_ms_of(call, f"four_step_{which}_kernel", 1)
+            plain_ms = time_ms(plain, 3)
+            b, by = bound(moved, muls * GL_MUL_OPS)
+            what = f"{shape} {'inverse' if inverse else 'forward'}"
+            log(f"  four_step_{which} {what} (log n {log_n}): mismatches {mism}, kernel {ms:.4f} ms, device "
+                f"{dev_ms} ms, plain {plain_ms:.4f} ms, bound {b:.6f} ms ({by})")
+            assert mism == 0, f"four_step_{which}_kernel disagrees with the plain version at {what}"
+            rows.append(dict(shape=what, max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b,
+                             bound_by=by))
+            del m
+    return rows
+
+
+def check_four_step_first(rng, dev):
+    return _four_step_cases(rng, "first")
+
+
+def check_four_step_last(rng, dev):
+    return _four_step_cases(rng, "last")
+
+
 def _fe_tensor(vals, dev):
     from blobstreamx_tpu_torch.fields import gf25519 as f
 
@@ -674,7 +765,7 @@ def check_pow_chain(rng, dev):
         a = _fe_tensor(fe_values(rng, n), dev)
         mism, err = _field_mismatch(f._chain_cuda(a, None), f.pow22523_plain(a))
         ms = time_ms(lambda: f._chain_cuda(a, None), 20)
-        plain_ms = time_ms(lambda: f.pow22523_plain(a), 2)
+        plain_ms = time_ms(lambda: f.pow22523_plain(a), 2, warm=1)  # about 2 s a call
         b, by = bound(2 * 16 * 8 * n, n * POW22523_MULS * FE_MUL_OPS)
         log(f"  pow22523 ({n} lanes): mismatches {mism}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"bound {b:.6f} ms ({by})")
@@ -698,13 +789,20 @@ def check_pow_chain(rng, dev):
 KERNELS = [
     dict(name="ntt", counter="ntt", source="blobstreamx_tpu_torch/csrc/ntt.cu",
          replaces="blobstreamx_tpu/ops/ntt.py:332", also_replaces="blobstreamx_tpu/ops/ntt.py:248",
-         path="config4", main_shape="(2048, 2048) forward", check=check_ntt),
+         path="config5", main_shape="(256, 8) forward", check=check_ntt),
     dict(name="ntt_multi", counter="ntt_multi", source="blobstreamx_tpu_torch/csrc/ntt.cu",
          replaces="blobstreamx_tpu/ops/ntt.py:332", also_replaces="blobstreamx_tpu/ops/ntt.py:248",
          path="config5_sha", main_shape="(2097152, 32) forward", check=check_ntt_multi),
-    dict(name="twiddle_transpose", counter="twiddle_transpose", source="blobstreamx_tpu_torch/csrc/ntt.cu",
+    dict(name="four_step_first", counter="four_step_first", source="blobstreamx_tpu_torch/csrc/ntt.cu",
          replaces="blobstreamx_tpu/ops/ntt.py:374", also_replaces="blobstreamx_tpu/ops/ntt.py:289",
-         path="config4", main_shape="(2048, 2048) forward", check=check_twiddle_transpose),
+         path="config4", main_shape="(2048, 2048) forward", check=check_four_step_first),
+    dict(name="four_step_last", counter="four_step_last", source="blobstreamx_tpu_torch/csrc/ntt.cu",
+         replaces="blobstreamx_tpu/ops/ntt.py:374", also_replaces="blobstreamx_tpu/ops/ntt.py:289",
+         path="config4", main_shape="(2048, 2048) forward", check=check_four_step_last),
+    # ntt_four_step's middle step above 2^28 (four_step_plan "long_columns"), a length no path runs
+    dict(name="twiddle_transpose", counter="twiddle_transpose", source="blobstreamx_tpu_torch/csrc/ntt.cu",
+         replaces="blobstreamx_tpu/ops/ntt.py:469", path=None, main_shape="(2048, 2048) forward",
+         check=check_twiddle_transpose),
     dict(name="poseidon", counter="poseidon", source="blobstreamx_tpu_torch/csrc/poseidon.cu",
          replaces="blobstreamx_tpu/ops/poseidon.py:188", path="config5", main_shape="(12, 16384)",
          check=check_poseidon),
@@ -922,6 +1020,12 @@ def odd_log_four_step(seed: int, log_n: int, iters: int) -> dict:
     return out
 
 
+def fri_proof_sha256(proof) -> str:
+    """SHA-256 of a FriProof's fields as canonical JSON."""
+    return hashlib.sha256(json.dumps(dataclasses.asdict(proof), sort_keys=True, separators=(",", ":")).encode()
+                          ).hexdigest()
+
+
 def config4(smi: str, profile: bool = False):
     """Config 4 on the card: cold and warm runs of the path, launches and
     peak memory of the warm one, the checks, then CUDA-event times; with
@@ -951,7 +1055,14 @@ def config4(smi: str, profile: bool = False):
     log(f"  peak device memory in the warm path: {peak} bytes ({resident} resident before it)")
     missing = [k for k in PATH_KERNELS["config4"] if launches[k] == 0]
     assert not missing, f"kernels of the config-4 path were not launched: {missing} ({launches})"
+    # three four-step calls (forward, inverse, codeword), two launches each, up to 2^28; the NTT kernel
+    # runs only the FRI prover's final polynomial
+    assert launches["four_step_first"] == launches["four_step_last"] == 3, launches
+    assert launches["twiddle_transpose"] == launches["ntt_multi"] == 0, launches
     assert proof == cold[3], "warm and cold FRI proofs differ"
+    fri_sha = fri_proof_sha256(proof)
+    log(f"  FRI proof SHA-256 {fri_sha} (the three-launch design's: {CONFIG4_FRI_PROOF_SHA256})")
+    assert fri_sha == CONFIG4_FRI_PROOF_SHA256, "the config-4 FRI proof differs from the three-launch design's"
 
     checks = config4_checks(x, coeffs, y, back, cw, proof, cfg, shift)
     log(f"  checks: {json.dumps(checks)}")
@@ -965,6 +1076,8 @@ def config4(smi: str, profile: bool = False):
     iters = c["iters"]
     ntt_ms = time_ms(lambda: ntt.ntt_four_step(x), iters)
     intt_ms = time_ms(lambda: ntt.ntt_four_step(y, inverse=True), iters)
+    ntt_dev_ms = device_ms_of(lambda: ntt.ntt_four_step(x), "four_step_", 2)
+    intt_dev_ms = device_ms_of(lambda: ntt.ntt_four_step(y, inverse=True), "four_step_", 2)
     plain_ms = time_ms(lambda: ntt.ntt_four_step_plain(x), 3)
     xc = (x[0][:, None], x[1][:, None])
     col_ms = time_ms(lambda: ntt.ntt_cols(xc), iters)
@@ -977,6 +1090,7 @@ def config4(smi: str, profile: bool = False):
         log_n=log_n, seed=c["seed"], iters=iters,
         ntt_wall_s=ntt_ms / 1e3, butterflies_per_s=bf / (ntt_ms / 1e3),
         intt_wall_s=intt_ms / 1e3, intt_butterflies_per_s=bf / (intt_ms / 1e3),
+        ntt_device_ms=ntt_dev_ms, intt_device_ms=intt_dev_ms, fri_proof_sha256=fri_sha,
         ntt_plain_wall_s=plain_ms / 1e3, ntt_cols_column_wall_s=col_ms / 1e3, ntt_cols_column_bound_ms=col_b,
         four_step_bound_ms=b, four_step_bound_by=by, butterflies_per_s_at_bound=bf / (b / 1e3),
         fri_fold_wall_s=fold_ms / 1e3, fri_fold_elems_per_s=(n // 2) / (fold_ms / 1e3),
@@ -986,7 +1100,8 @@ def config4(smi: str, profile: bool = False):
         odd_log_four_step=odd,
     )
     log(f"  four-step 2^{log_n}: forward {ntt_ms:.4f} ms ({rec['butterflies_per_s']:.4e} butterflies/s), "
-        f"inverse {intt_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b:.6f} ms ({by}); ntt_cols of the "
+        f"inverse {intt_ms:.4f} ms, device {ntt_dev_ms} / {intt_dev_ms} ms, plain {plain_ms:.4f} ms, "
+        f"bound {b:.6f} ms ({by}); ntt_cols of the "
         f"(2^{log_n}, 1) column {col_ms:.4f} ms (bound {col_b:.6f} ms); fold {fold_ms:.4f} ms")
     log(json.dumps({"config4": rec}))
     if profile:
@@ -1683,7 +1798,7 @@ def profile_warm(what: str, run, spans=()):
     ours = ("ntt_", "twiddle_transpose_kernel", "poseidon_kernel", "edwards_add_kernel", "pow22523_kernel",
             "sqn_kernel")
     for e in sorted(kernel_rows, key=dev_us, reverse=True):
-        if any(e.key.startswith(o) for o in ours):
+        if e.key.startswith(ours) or "four_step_" in e.key:
             log(f"  hand kernel {e.key}: {e.count} launches, {dev_us(e) / 1e3:.3f} ms device time")
     ed = [e for e in kernel_rows if e.key.startswith(("edwards_add_kernel", "pow22523_kernel", "sqn_kernel"))]
     log(f"  Ed25519 kernels (edwards add, power chain): {sum(e.count for e in ed)} launches, "
@@ -2313,10 +2428,14 @@ def main() -> int:
         entry = dict(name=k["name"], route="cuda", source=k["source"], replaces=k["replaces"])
         if "also_replaces" in k:
             entry["also_replaces"] = k["also_replaces"]
-        entry.update(launches=by_path[k["path"]][k["counter"]], path=k["path"],
+        # a kernel no path runs (twiddle_transpose: ntt_four_step above 2^28) has 0 launches
+        entry.update(launches=by_path[k["path"]][k["counter"]] if k["path"] else 0,
+                     path=k["path"] or "none: ntt_four_step above 2^28",
                      launches_by_path={p: counts[k["counter"]] for p, counts in by_path.items()},
                      max_abs_err=max(r["max_abs_err"] for r in rows[k["name"]]))
         entry.update({key: main_row[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")})
+        if "device_ms" in main_row:
+            entry["device_ms"] = main_row["device_ms"]
         entry.update(library_ms=None, shape=main_row["shape"])
         if k["source"].endswith("ed25519.cu"):
             entry["launch_floor_ms"] = floor_ms

@@ -22,12 +22,16 @@ executes per permutation (the static count, plus each of the three round
 loops' bodies once more per extra trip: 4, 22, 4 trips), for the NTT the
 instructions per butterfly of the tile kernel at (2048, 2048) forward and
 of each long-column pass kernel and the whole long-column transform at
-(2^21, 32) forward (see ntt_count), and for ed25519.cu the instructions per
+(2^21, 32) forward (see ntt_count), of the four-step's two kernels at 2^22
+(four_step_first_kernel<11, 2>, four_step_last_kernel<11, 2>) and of the
+whole two-launch four-step, and for ed25519.cu the instructions per
 field multiply, per squaring, per Edwards add and per pow22523 chain (see
 ed_count). Then it times every library's kernel at the shapes of
 chip_smoke.py's phase 3 (the NTT's long-column path, columns longer than
 2^14, at the SHA-256 tier's shapes and the edges of its design among them),
-the twiddle-transpose and the whole four-step NTT at config 4's 2^22, in
+the twiddle-transpose and the whole four-step NTT at config 4's 2^22 (two
+launches where the library has bsx_four_step_first, else the NTT kernel,
+the twiddle-transpose and the NTT kernel), in
 the order this checkout, baselines, baselines reversed, this checkout,
 each time the mean of its two turns, both by CUDA events over back-to-back
 calls and as device time under torch.profiler, also by kernel name (see
@@ -70,6 +74,8 @@ NTT_SHAPES = (
     (1 << 16, 128, True), (1 << 19, 128, False), (1 << 19, 2, True), (1 << 19, 16, False),
 )
 LONG_COUNT_SHAPE = (21, 32)  # (log n, columns) at which the long-column kernels' instructions are counted
+# the four-step kernels' instances at config 4's 2^22: columns of 2^11, 4-column tiles, counted at (2^11, 2048)
+FOUR_STEP_INSTANCE = "ILi11ELi2EE"
 FOUR_STEP_LOG_N = 22  # config 4's polynomial: the twiddle-transpose at (2048, 2048) and the whole four-step
 ED_LANES = (64, 1024, 4096, 32768)  # the Edwards add's lane counts on config 5's path
 CHAIN_CASES = ((None, 64), (None, 4096), (1, 64), (5, 64), (50, 64))  # (sqn k, or pow22523; lanes)
@@ -226,6 +232,7 @@ def ntt_count(fn: str, instrs, found: list[dict], log_n: int = 11, c: int = 2048
     load (LDG and STS), the stage loop (LDS and STS) with its enclosing loop
     of log n trips, the store (LDS and STG)."""
     n = 1 << log_n
+    four_step = "four_step_" in fn
     inner = [lp for lp in found if not any(_inside(o, lp) for o in found)]
     top = [lp for lp in found if not any(_inside(lp, o) for o in found)]
     ops = {id(lp): _ops(instrs, lp) for lp in inner}
@@ -244,7 +251,7 @@ def ntt_count(fn: str, instrs, found: list[dict], log_n: int = 11, c: int = 2048
         return out["instructions"] - sum(i["instructions"] for i in inner if _inside(i, out))
 
     parts, blocks = {}, None
-    tile = "ntt_tile_kernel" in fn
+    tile = "ntt_tile_kernel" in fn or four_step
     if tile or ("ntt_long_" in fn and long_pass is not None):
         log_t, log_ct = (log_n, min(2, c.bit_length() - 1)) if tile else long_pass
         ct = 1 << log_ct
@@ -261,7 +268,11 @@ def ntt_count(fn: str, instrs, found: list[dict], log_n: int = 11, c: int = 2048
         middle = mids[-1] if mids else None  # radix 8: the most shared-memory loads
         middle4 = next((lp for lp in reversed(mids) if ops[id(lp)]["LDS"] < ops[id(middle)]["LDS"]), None) \
             if mids else None
-        last = role(("LDS", "STG"), ("STS",), stg=(4 if tile or "ntt_long_last" in fn else 1) << r_last)
+        # the last pass stores (lo, hi) on both sides of the inverse's branch, (lo, hi) once (the
+        # four-step's last kernel, no inverse scale) or the u64 intermediate
+        stores = 1 if "four_step_first" in fn else 2 if "four_step_last" in fn else \
+            4 if tile or "ntt_long_last" in fn else 1
+        last = role(("LDS", "STG"), ("STS",), stg=stores << r_last)
         if passes < 3 or radix8 < 1 or None in (first, middle, last) or (mid4 and middle4 is None):
             return None
 
@@ -297,14 +308,15 @@ def ntt_count(fn: str, instrs, found: list[dict], log_n: int = 11, c: int = 2048
     out = dict(shape=f"({n}, {c}) forward", threads=threads, butterflies_per_thread=butterflies,
                instructions_per_thread=parts, per_butterfly=round(sum(parts.values()) / butterflies, 2),
                loop_body_per_butterfly=per_trip)
-    if long_pass is not None:
-        out.update(stages=long_pass[0], blocks=blocks)
+    if long_pass is not None or four_step:
+        out.update(stages=log_t if four_step else long_pass[0], blocks=blocks)
     return out
 
 
 def long_transform_count(counts: list[dict]) -> float | None:
-    """Instructions per butterfly of a whole long-column transform from its
-    passes' ntt_count: every thread's instructions over every butterfly."""
+    """Instructions per butterfly of a whole transform of several launches
+    (a long column's passes, the four-step's two kernels) from their
+    ntt_count: every thread's instructions over every butterfly."""
     if not counts or None in counts:
         return None
     instr = sum(sum(k["instructions_per_thread"].values()) * k["threads"] * k["blocks"] for k in counts)
@@ -414,7 +426,8 @@ def main() -> int:
         dump = []
         for fn, instrs in sass(path).items():
             if not any(k in fn for k in ("poseidon_kernel", "ntt_smem_kernel", "ntt_tile_kernel", "ntt_long_",
-                                         "twiddle_transpose_kernel", "edwards_add_kernel", "pow22523_kernel",
+                                         "twiddle_transpose_kernel", "four_step_first_kernel",
+                                         "four_step_last_kernel", "edwards_add_kernel", "pow22523_kernel",
                                          "sqn_kernel")):
                 continue
             dump += [f"Function : {fn}"] + [f"/*{a:04x}*/ {t}" for a, t in instrs]
@@ -422,6 +435,8 @@ def main() -> int:
             if "poseidon_kernel" in fn:
                 k["per_permutation"] = per_permutation(len(instrs), k["loops"])
             elif "ntt_tile_kernel" in fn or "ntt_smem_kernel" in fn:
+                k["per_butterfly"] = ntt_count(fn, instrs, k["loops"])
+            elif "four_step_" in fn and FOUR_STEP_INSTANCE in fn:
                 k["per_butterfly"] = ntt_count(fn, instrs, k["loops"])
             elif "ntt_long_" in fn:
                 plan = long_plan(ctypes.CDLL(str(path)), *LONG_COUNT_SHAPE) or []
@@ -436,6 +451,10 @@ def main() -> int:
             roles = ["first"] + ["mid"] * (len(plan) - 2) + ["last"] if plan else []
             entry["long_plan"] = plan
             entry["long_per_butterfly"] = long_transform_count([by_role[r] for r in roles])
+            halves = [next((k["per_butterfly"] for fn, k in entry["kernels"].items()
+                            if f"four_step_{kind}_kernel" in fn and FOUR_STEP_INSTANCE in fn), None)
+                      for kind in ("first", "last")]
+            entry["four_step_per_butterfly"] = long_transform_count(halves) if any(halves) else None
         if name == "ed25519":
             add = [k["static_instructions"] for fn, k in entry["kernels"].items() if "edwards_add_kernel" in fn]
             entry["field_counts"] = ed_count(probes[label], add[0] if add else None)
@@ -483,18 +502,39 @@ def main() -> int:
                                                 n2.bit_length() - 1, stream), "twiddle-transpose")
         return out
 
+    def four_step_call(lib, mat, inverse):
+        n1, n2 = mat[0].shape
+        l1, l2 = n1.bit_length() - 1, n2.bit_length() - 1
+        buf = torch.empty((n2, n1), dtype=torch.int64, device="cuda")
+        high, low = ntt._four_step_twiddle_tables_device(FOUR_STEP_LOG_N, inverse, "cuda")
+        kernels.check(lib.bsx_four_step_first(mat[0].data_ptr(), mat[1].data_ptr(), buf.data_ptr(),
+                                              ntt._power_table_device(l1, inverse, "cuda").data_ptr(),
+                                              high.data_ptr(), low.data_ptr(), l1, l2, stream), "four-step first")
+        out = (torch.empty((n2, n1), dtype=torch.int64, device="cuda"),
+               torch.empty((n2, n1), dtype=torch.int64, device="cuda"))
+        kernels.check(lib.bsx_four_step_last(buf.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+                                             ntt._power_table_device(l2, inverse, "cuda").data_ptr(), l1, l2,
+                                             stream), "four-step last")
+        return out
+
     def ntt_kind_call(lib, x, arg):
         """arg = (kind, inverse): "cols" is bsx_ntt_cols on an (n, C) batch,
         "tt" the twiddle-transpose of config 4's (n1, n2) matrix, "four_step"
-        the whole four-step NTT of one polynomial (ntt.py's _four_step on this
-        library's two kernels)."""
+        the whole four-step NTT of one polynomial: the library's two four-step
+        kernels, or for a design without them its NTT kernel, twiddle-transpose
+        and NTT kernel."""
         kind, inverse = arg
         if kind == "cols":
             return ntt_call(lib, x, inverse)
         if kind == "tt":
             return tt_call(lib, x, FOUR_STEP_LOG_N, inverse)
-        return ntt._four_step(x, inverse, lambda m, inv: ntt_call(lib, m, inv),
-                              lambda m, log_n, inv: tt_call(lib, m, log_n, inv))
+        n1, n2 = ntt.four_step_shape(FOUR_STEP_LOG_N)
+        mat = (x[0].reshape(n1, n2), x[1].reshape(n1, n2))
+        if getattr(lib, "bsx_four_step_first", None) is None:  # the three-launch design
+            out = ntt_call(lib, tt_call(lib, ntt_call(lib, mat, inverse), FOUR_STEP_LOG_N, inverse), inverse)
+        else:
+            out = four_step_call(lib, mat, inverse)
+        return out[0].reshape(-1), out[1].reshape(-1)
 
     def add_call(lib, coords):
         n = coords[0].shape[1]
@@ -546,8 +586,12 @@ def main() -> int:
         def launches(label):
             """Kernels one call launches: the library's own count of its NTT
             launches where it keeps one (bsx_ntt_launch_count), plus the
-            four-step's twiddle-transpose; else 1."""
-            count = getattr(handles[(label, name)], "bsx_ntt_launch_count", None)
+            four-step's twiddle-transpose; 2 for a two-launch four-step;
+            else 1."""
+            lib = handles[(label, name)]
+            count = getattr(lib, "bsx_ntt_launch_count", None)
+            if arg[0] == "four_step" and getattr(lib, "bsx_four_step_first", None) is not None:
+                return 2
             if count is None or arg[0] == "tt":
                 return 1
             before = count()

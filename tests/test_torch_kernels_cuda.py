@@ -166,7 +166,28 @@ def test_twiddle_transpose_kernel(n1, n2, inverse):
 
 
 @pytest.mark.parametrize("inverse", [False, True])
-@pytest.mark.parametrize("log_n", [5, 11, 21, 22])
+@pytest.mark.parametrize("log_n", [1, 2, 21, 22])
+def test_four_step_kernels(log_n, inverse):
+    """Each launch of the two-launch four-step against its plain version:
+    the first at (n1, n2) = (1, 2), (2, 2), (1024, 2048), (2048, 2048), its
+    u64 intermediate through its (lo, hi) split; the last at (n2, n1)."""
+    from blobstreamx_tpu_torch.ops import ntt
+
+    _card()
+    n1, n2 = ntt.four_step_shape(log_n)
+    rng = np.random.default_rng(log_n + 40)
+    m = gl(rng, (n1, n2))
+    buf = ntt._four_step_first_cuda(m, log_n, inverse)
+    assert buf.shape == (n2, n1) and buf.dtype == torch.int64
+    k, p = ntt.gl_from_scratch(buf), ntt.four_step_first_plain(m, log_n, inverse)
+    assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+    g = gl(rng, (n2, n1))
+    k, p = ntt._four_step_last_cuda(ntt.scratch_from_gl(g), log_n, inverse), ntt.four_step_last_plain(g, log_n, inverse)
+    assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("log_n", [0, 1, 5, 11, 21, 22])
 def test_ntt_four_step_on_the_card(log_n, inverse):
     from blobstreamx_tpu_torch import kernels
     from blobstreamx_tpu_torch.ops import ntt
@@ -175,11 +196,30 @@ def test_ntt_four_step_on_the_card(log_n, inverse):
     x = gl(np.random.default_rng(log_n), (1 << log_n,))
     kernels.reset_counts()
     k = ntt.ntt_four_step(x, inverse)
-    assert kernels.launches["ntt"] == 2 and kernels.launches["twiddle_transpose"] == 1
+    # up to 2^28 the four-step is two launches, one of each kernel, and no other
+    assert {name: c for name, c in kernels.launches.items() if c} == {"four_step_first": 1, "four_step_last": 1}
     p = ntt.ntt_four_step_plain(x, inverse)
     assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
     col = ntt.ntt_cols((x[0][:, None], x[1][:, None]), inverse)
     assert torch.equal(k[0], col[0][:, 0]) and torch.equal(k[1], col[1][:, 0])
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("log_n", [5, 22])
+def test_four_step_long_column_route_on_the_card(log_n, inverse):
+    """The route ntt_four_step takes above 2^28 (NTT kernel, twiddle-transpose
+    kernel, NTT kernel), run at a length that fits the two-launch route, is
+    word for word the two-launch four-step."""
+    from blobstreamx_tpu_torch import kernels
+    from blobstreamx_tpu_torch.ops import ntt
+
+    _card()
+    x = gl(np.random.default_rng(log_n + 7), (1 << log_n,))
+    kernels.reset_counts()
+    k = ntt._four_step_long_columns_cuda(x, inverse)
+    assert kernels.launches["twiddle_transpose"] == 1 and kernels.launches["ntt"] == 2
+    p = ntt.ntt_four_step(x, inverse)
+    assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
 
 
 def test_streaming_prover_on_the_card_equals_the_cpu():

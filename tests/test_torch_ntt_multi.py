@@ -277,9 +277,13 @@ def run_ptx(fn: str, *operands: int) -> int:
     """One of gl64.cuh's asm blocks on u64 operands %1, %2, returning %0: a
     model of the PTX (32-bit registers, the carry flag a carry for add and
     mad, a borrow for sub). Raises if an instruction without .cc carries or
-    borrows out of 32 bits (subc's 0 - 0 - borrow mask aside)."""
+    borrows out of 32 bits (subc's 0 - 0 - borrow mask aside), or if a
+    carry-in instruction reads a flag that the other family set: on the
+    card a subtraction's flag is "no borrow", which this model does not
+    follow."""
     regs = {f"%{i + 1}": v for i, v in enumerate(operands)}
     cf, pred = 0, {}
+    cf_from = None  # the family that set the flag: ptxas reads a subtraction's flag as "no borrow"
 
     def val(x):
         return regs[x] if x in regs else int(x, 0)
@@ -321,8 +325,12 @@ def run_ptx(fn: str, *operands: int) -> int:
             s = src[0] - src[1] - (cf if base == "subc" else 0)
         else:
             raise ValueError(f"instruction not modelled: {ins}")
+        family = "sub" if base in ("sub", "subc") else "add"
+        if base in ("addc", "madc", "subc"):
+            assert cf_from == family, f"{ins} reads a flag set by {cf_from} (the card differs from this model there)"
         if cc:
             cf = int(s < 0) if base in ("sub", "subc") else int(s > M32)
+            cf_from = family
         elif not (base == "subc" and args[1:] == ["0", "0"]):
             assert 0 <= s <= M32, f"{ins} carries out of 32 bits ({s:#x})"
         regs[d] = s & M32
