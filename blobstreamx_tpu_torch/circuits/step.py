@@ -33,6 +33,7 @@ from blobstreamx_tpu_torch.circuits.witness import (
 from blobstreamx_tpu_torch.device import resolve
 from blobstreamx_tpu_torch.golden import encoding as enc
 from blobstreamx_tpu_torch.ops import ed25519 as ed_ops, sha256 as sha_ops
+from blobstreamx_tpu_torch.utils.timing import maybe_scope, open_tree
 
 
 @dataclass
@@ -108,48 +109,60 @@ def build_step_witness(chain: ChainFixture, prev_height: int) -> StepWitness:
 
 def verify_step(witness: StepWitness, device=None) -> StepCheckResult:
     """Run the step relation on `device` (default: the card; raises when
-    CUDA is missing unless device="cpu" is passed)."""
+    CUDA is missing unless device="cpu" is passed). The TimingTree open on
+    this thread (utils.timing.open_tree), if any, gets a scope a step
+    (valsets, signatures, powers, links), each ending on a host readback
+    and a synchronised card."""
     device = resolve(device)
+    timing = open_tree()
     reasons: list[str] = []
     w = witness
 
     def dev(arr):
         return sha_ops.to_device(arr, device)
 
-    new_vh = sha_ops.digests_to_bytes(_valset_root(w.new_set, device))[0]
+    def step(name, items, unit):
+        return maybe_scope(timing, name, items=items, unit=unit, sync=device)
 
-    inc = w.inclusions
-    inc_ok = hdr.verify_inclusions(
-        dev(inc.values), dev(inc.siblings), dev(inc.dirs), dev(inc.roots)
-    ).cpu().numpy()
-    leaf_vals = sha_ops.digests_to_bytes(inc.values)
-    inc_roots = sha_ops.digests_to_bytes(inc.roots)
-    if not inc_ok[0] or leaf_vals[0] != new_vh or inc_roots[0] != w.new_root:
-        reasons.append("new validators_hash mismatch or not included in h+1")
-    if not inc_ok[1] or leaf_vals[1] != new_vh or inc_roots[1] != w.prev_root:
-        reasons.append("next_validators_hash chain link broken in h")
+    n_vals = len(w.new_set.pubkeys)
+    with step("valsets", n_vals, "validators"):
+        new_vh = sha_ops.digests_to_bytes(_valset_root(w.new_set, device))[0]
 
-    items = [
-        (pk, w.sign_bytes, sig)
-        for pk, sig, s in zip(w.new_set.pubkeys, w.signatures, w.signed)
-        if s
-    ]
-    sig_ok = bool(items) and ed_ops.batch_verify(items, device=device)[0]
-    if not sig_ok:
-        reasons.append("commit signature batch failed")
+        inc = w.inclusions
+        inc_ok = hdr.verify_inclusions(
+            dev(inc.values), dev(inc.siblings), dev(inc.dirs), dev(inc.roots)
+        ).cpu().numpy()
+        leaf_vals = sha_ops.digests_to_bytes(inc.values)
+        inc_roots = sha_ops.digests_to_bytes(inc.roots)
+        if not inc_ok[0] or leaf_vals[0] != new_vh or inc_roots[0] != w.new_root:
+            reasons.append("new validators_hash mismatch or not included in h+1")
+        if not inc_ok[1] or leaf_vals[1] != new_vh or inc_roots[1] != w.prev_root:
+            reasons.append("next_validators_hash chain link broken in h")
 
-    signed_p, total_p = _power_sums(w.new_set, w.signed, device)
-    if not vals.threshold_gt(signed_p, total_p, 2, 3):
-        reasons.append("commit power <= 2/3")
+    with step("signatures", int(np.count_nonzero(w.signed)), "signatures"):
+        items = [
+            (pk, w.sign_bytes, sig)
+            for pk, sig, s in zip(w.new_set.pubkeys, w.signatures, w.signed)
+            if s
+        ]
+        sig_ok = bool(items) and ed_ops.batch_verify(items, device=device)[0]
+        if not sig_ok:
+            reasons.append("commit signature batch failed")
+
+    with step("powers", n_vals, "validators"):
+        signed_p, total_p = _power_sums(w.new_set, w.signed, device)
+        if not vals.threshold_gt(signed_p, total_p, 2, 3):
+            reasons.append("commit power <= 2/3")
 
     cl = w.chain_link
-    prev_roots = sha_ops.bytes32_to_words([w.prev_root])
-    link_ok = _verify_link_leaves(
-        dev(cl.blocks), dev(cl.n_blocks), dev(cl.siblings), dev(cl.dirs),
-        dev(cl.roots), dev(prev_roots),
-    ).cpu().numpy()
-    if not link_ok.all() or sha_ops.digests_to_bytes(cl.roots)[0] != w.new_root:
-        reasons.append("last_block_id chain link failed")
+    with step("links", cl.roots.shape[1], "headers"):
+        prev_roots = sha_ops.bytes32_to_words([w.prev_root])
+        link_ok = _verify_link_leaves(
+            dev(cl.blocks), dev(cl.n_blocks), dev(cl.siblings), dev(cl.dirs),
+            dev(cl.roots), dev(prev_roots),
+        ).cpu().numpy()
+        if not link_ok.all() or sha_ops.digests_to_bytes(cl.roots)[0] != w.new_root:
+            reasons.append("last_block_id chain link failed")
 
     outputs = StepPublicOutputs(
         prev_height=w.prev_height,

@@ -21,13 +21,13 @@ The verifier never performs a scalar multiplication."""
 from __future__ import annotations
 
 import hashlib
-from contextlib import nullcontext
 from dataclasses import dataclass
 
 from blobstreamx_tpu_torch.device import resolve_with_mesh
 from blobstreamx_tpu_torch.golden import ed25519 as ged
 from blobstreamx_tpu_torch.prover import ed_air, stark, stark_stream
 from blobstreamx_tpu_torch.prover.config import StarkConfig
+from blobstreamx_tpu_torch.utils.timing import maybe_scope
 
 L = ged.L
 Q = ged.Q
@@ -107,7 +107,7 @@ def prove_batch_stark(
     pairs = batch_msm_pairs(items, zs)
     if pairs is None:
         raise ValueError("malformed batch input (encoding or s >= L)")
-    with nullcontext() if timing is None else timing.scope("trace (host)", items=len(pairs), unit="segments"):
+    with maybe_scope(timing, "host trace", items=len(pairs), unit="segments"):
         trace, aux = ed_air.build_ed_trace(pairs)
     air = ed_air.EdScalarMulAir(len(pairs))
     proof = stark_stream.prove_auto(air, trace, [], config, aux=aux, device=device, timing=timing, mesh=mesh)

@@ -343,137 +343,135 @@ def prove_skip(
     device = resolve_with_mesh(device, mesh)
     config = config or StarkConfig()
     metrics = metrics or MetricsWriter(None)
-    timing = TimingTree("prove_skip")
+    with TimingTree("prove_skip") as timing:
+        key = hashlib.sha256(
+            witness_fingerprint(witness)
+            + repr(config).encode()
+            + f"|sha={with_sha_stark}|ed={with_ed_stark}".encode()
+        ).hexdigest()[:32]
+        # keyed by the proof's identity, not by a run id: a retry of the same
+        # (witness, config, flags), in this process or another, finds the
+        # completed phases of the attempt before it
+        ckpt = PhaseCheckpointer(checkpoint_dir, f"skip-{key}", read_only=mesh is not None and mesh.rank != 0)
 
-    key = hashlib.sha256(
-        witness_fingerprint(witness)
-        + repr(config).encode()
-        + f"|sha={with_sha_stark}|ed={with_ed_stark}".encode()
-    ).hexdigest()[:32]
-    # keyed by the proof's identity, not by a run id: a retry of the same
-    # (witness, config, flags), in this process or another, finds the
-    # completed phases of the attempt before it
-    ckpt = PhaseCheckpointer(checkpoint_dir, f"skip-{key}", read_only=mesh is not None and mesh.rank != 0)
+        def load(phase: str):
+            r = ckpt.load(phase)
+            return r if r is not None and r[1].get("key") == key else None
 
-    def load(phase: str):
-        r = ckpt.load(phase)
-        return r if r is not None and r[1].get("key") == key else None
-
-    saved_trace = load("trace")
-    saved_cons = load("consensus")
-    if saved_trace is not None and saved_cons is not None:
-        arrays, scalars = saved_cons
-        outputs = SkipPublicOutputs(
-            trusted_height=int(scalars["trusted_height"]),
-            trusted_root=bytes.fromhex(scalars["trusted_root"]),
-            target_height=int(scalars["target_height"]),
-            target_root=bytes.fromhex(scalars["target_root"]),
-            data_commitment=bytes.fromhex(scalars["data_commitment"]),
-        )
-        res = SkipCheckResult(
-            ok=True,
-            reasons=[],
-            outputs=outputs,
-            target_powers=arrays["target_powers"],
-            target_signed=arrays["target_signed"].astype(bool),
-            trusted_powers=arrays["trusted_powers"],
-            trusted_signed=arrays["trusted_signed"].astype(bool),
-            signed_target_power=int(scalars["signed_target"]),
-            total_target_power=int(scalars["total_target"]),
-            signed_trusted_power=int(scalars["signed_trusted"]),
-            total_trusted_power=int(scalars["total_trusted"]),
-        )
-        trace = saved_trace[0]["trace"]
-        timing.note("consensus+trace resumed from checkpoint")
-    else:
-        with timing.scope("consensus", items=len(witness.range_heights), unit="headers", sync=device):
-            res = verify_skip(witness, device=device, mesh=mesh)
-        if not res.ok:
-            metrics.emit("skip_rejected", reasons=res.reasons)
-            raise ValueError(f"skip relation unsatisfied: {res.reasons}")
-        ckpt.save(
-            "consensus",
-            arrays={
-                "target_powers": np.asarray(res.target_powers, np.uint64),
-                "target_signed": np.asarray(res.target_signed, np.uint8),
-                "trusted_powers": np.asarray(res.trusted_powers, np.uint64),
-                "trusted_signed": np.asarray(res.trusted_signed, np.uint8),
-            },
-            scalars={
-                "key": key,
-                "signed_target": int(res.signed_target_power),
-                "total_target": int(res.total_target_power),
-                "signed_trusted": int(res.signed_trusted_power),
-                "total_trusted": int(res.total_trusted_power),
-                "trusted_height": int(res.outputs.trusted_height),
-                "trusted_root": res.outputs.trusted_root.hex(),
-                "target_height": int(res.outputs.target_height),
-                "target_root": res.outputs.target_root.hex(),
-                "data_commitment": res.outputs.data_commitment.hex(),
-            },
-        )
-        with timing.scope("trace"):
-            trace = build_skip_trace(res)
-        ckpt.save("trace", arrays={"trace": trace}, scalars={"key": key})
-
-    # the aux STARKs are proven BEFORE the main STARK so their claim
-    # digests enter the main transcript
-    sha_proof = None
-    if with_sha_stark:
-        saved = load("sha_stark")
-        if saved is not None:
-            sha_proof = serialize.sha_claims_from_dict(_proof_from_arr(saved[0]["proof"]))
-            timing.note("sha_stark resumed from checkpoint")
-        elif with_sha_stark == "full":
-            with timing.scope("sha_stark", items=len(witness.range_heights), unit="headers", sync=device):
-                sha_proof = skip_claims.prove_skip_sha_stark(witness, config, device=device, timing=timing)
+        saved_trace = load("trace")
+        saved_cons = load("consensus")
+        if saved_trace is not None and saved_cons is not None:
+            arrays, scalars = saved_cons
+            outputs = SkipPublicOutputs(
+                trusted_height=int(scalars["trusted_height"]),
+                trusted_root=bytes.fromhex(scalars["trusted_root"]),
+                target_height=int(scalars["target_height"]),
+                target_root=bytes.fromhex(scalars["target_root"]),
+                data_commitment=bytes.fromhex(scalars["data_commitment"]),
+            )
+            res = SkipCheckResult(
+                ok=True,
+                reasons=[],
+                outputs=outputs,
+                target_powers=arrays["target_powers"],
+                target_signed=arrays["target_signed"].astype(bool),
+                trusted_powers=arrays["trusted_powers"],
+                trusted_signed=arrays["trusted_signed"].astype(bool),
+                signed_target_power=int(scalars["signed_target"]),
+                total_target_power=int(scalars["total_target"]),
+                signed_trusted_power=int(scalars["signed_trusted"]),
+                total_trusted_power=int(scalars["total_trusted"]),
+            )
+            trace = saved_trace[0]["trace"]
+            timing.note("consensus+trace resumed from checkpoint")
         else:
-            heights = [int(h) for h in witness.range_heights]
-            with timing.scope("sha_stark", items=len(heights), unit="leaves", sync=device):
-                sha_proof, sha_root = sha_claims.prove_data_commitment_stark(
-                    heights, witness.range_data_hashes, config, device=device, timing=timing
+            with timing.scope("consensus", items=len(witness.range_heights), unit="headers", sync=device):
+                res = verify_skip(witness, device=device, mesh=mesh)
+            if not res.ok:
+                metrics.emit("skip_rejected", reasons=res.reasons)
+                raise ValueError(f"skip relation unsatisfied: {res.reasons}")
+            ckpt.save(
+                "consensus",
+                arrays={
+                    "target_powers": np.asarray(res.target_powers, np.uint64),
+                    "target_signed": np.asarray(res.target_signed, np.uint8),
+                    "trusted_powers": np.asarray(res.trusted_powers, np.uint64),
+                    "trusted_signed": np.asarray(res.trusted_signed, np.uint8),
+                },
+                scalars={
+                    "key": key,
+                    "signed_target": int(res.signed_target_power),
+                    "total_target": int(res.total_target_power),
+                    "signed_trusted": int(res.signed_trusted_power),
+                    "total_trusted": int(res.total_trusted_power),
+                    "trusted_height": int(res.outputs.trusted_height),
+                    "trusted_root": res.outputs.trusted_root.hex(),
+                    "target_height": int(res.outputs.target_height),
+                    "target_root": res.outputs.target_root.hex(),
+                    "data_commitment": res.outputs.data_commitment.hex(),
+                },
+            )
+            with timing.scope("trace"):
+                trace = build_skip_trace(res)
+            ckpt.save("trace", arrays={"trace": trace}, scalars={"key": key})
+
+        # the aux STARKs are proven BEFORE the main STARK so their claim
+        # digests enter the main transcript
+        sha_proof = None
+        if with_sha_stark:
+            saved = load("sha_stark")
+            if saved is not None:
+                sha_proof = serialize.sha_claims_from_dict(_proof_from_arr(saved[0]["proof"]))
+                timing.note("sha_stark resumed from checkpoint")
+            elif with_sha_stark == "full":
+                with timing.scope("sha_stark", items=len(witness.range_heights), unit="headers", sync=device):
+                    sha_proof = skip_claims.prove_skip_sha_stark(witness, config, device=device, timing=timing)
+            else:
+                heights = [int(h) for h in witness.range_heights]
+                with timing.scope("sha_stark", items=len(heights), unit="leaves", sync=device):
+                    sha_proof, sha_root = sha_claims.prove_data_commitment_stark(
+                        heights, witness.range_data_hashes, config, device=device, timing=timing
+                    )
+                if sha_root != res.outputs.data_commitment:
+                    raise ValueError("sha-stark root mismatch vs device data commitment")
+            if saved is None:
+                ckpt.save(
+                    "sha_stark",
+                    arrays={"proof": _proof_bytes_arr(serialize.sha_claims_to_dict(sha_proof))},
+                    scalars={"key": key},
                 )
-            if sha_root != res.outputs.data_commitment:
-                raise ValueError("sha-stark root mismatch vs device data commitment")
-        if saved is None:
-            ckpt.save(
-                "sha_stark",
-                arrays={"proof": _proof_bytes_arr(serialize.sha_claims_to_dict(sha_proof))},
-                scalars={"key": key},
-            )
 
-    ed_proof = None
-    if with_ed_stark:
-        saved = load("ed_stark")
-        if saved is not None:
-            ed_proof = serialize.ed_claims_from_dict(_proof_from_arr(saved[0]["proof"]))
-            timing.note("ed_stark resumed from checkpoint")
+        ed_proof = None
+        if with_ed_stark:
+            saved = load("ed_stark")
+            if saved is not None:
+                ed_proof = serialize.ed_claims_from_dict(_proof_from_arr(saved[0]["proof"]))
+                timing.note("ed_stark resumed from checkpoint")
+            else:
+                items = signature_items(witness)
+                with timing.scope("ed_stark", items=len(items), unit="signatures", sync=device):
+                    ed_proof = ed_claims.prove_batch_stark(items, config=config, device=device, timing=timing,
+                                                           mesh=mesh)
+                ckpt.save(
+                    "ed_stark",
+                    arrays={"proof": _proof_bytes_arr(serialize.ed_claims_to_dict(ed_proof))},
+                    scalars={"key": key},
+                )
+
+        publics = skip_publics(res.outputs, res, sha_claim_digest(sha_proof), ed_claim_digest(ed_proof))
+        saved = load("stark")
+        if saved is not None and saved[1].get("publics") == [int(v) for v in publics]:
+            proof = serialize.stark_proof_from_dict(_proof_from_arr(saved[0]["proof"]))
+            timing.note("stark resumed from checkpoint")
         else:
-            items = signature_items(witness)
-            with timing.scope("ed_stark", items=len(items), unit="signatures", sync=device):
-                ed_proof = ed_claims.prove_batch_stark(items, config=config, device=device, timing=timing,
-                                                       mesh=mesh)
+            with timing.scope("stark", items=trace.shape[0], unit="rows", sync=device):
+                proof = stark.prove(SkipAir(), trace, publics, config, device=device, mesh=mesh, timing=timing)
             ckpt.save(
-                "ed_stark",
-                arrays={"proof": _proof_bytes_arr(serialize.ed_claims_to_dict(ed_proof))},
-                scalars={"key": key},
+                "stark",
+                arrays={"proof": _proof_bytes_arr(serialize.stark_proof_to_dict(proof))},
+                scalars={"key": key, "publics": [int(v) for v in publics]},
             )
 
-    publics = skip_publics(res.outputs, res, sha_claim_digest(sha_proof), ed_claim_digest(ed_proof))
-    saved = load("stark")
-    if saved is not None and saved[1].get("publics") == [int(v) for v in publics]:
-        proof = serialize.stark_proof_from_dict(_proof_from_arr(saved[0]["proof"]))
-        timing.note("stark resumed from checkpoint")
-    else:
-        with timing.scope("stark", items=trace.shape[0], unit="rows", sync=device):
-            proof = stark.prove(SkipAir(), trace, publics, config, device=device, mesh=mesh)
-        ckpt.save(
-            "stark",
-            arrays={"proof": _proof_bytes_arr(serialize.stark_proof_to_dict(proof))},
-            scalars={"key": key, "publics": [int(v) for v in publics]},
-        )
-
-    timing.finish()
     metrics.emit_timing(
         timing,
         n_headers=int(len(witness.range_heights)),
@@ -542,17 +540,16 @@ def prove_step(witness, config: StarkConfig | None = None, device=None) -> StepP
     Raises ValueError (fail-stop) if the witness does not satisfy it."""
     device = resolve(device)
     config = config or StarkConfig()
-    timing = TimingTree("prove_step")
-    with timing.scope("consensus", sync=device):
-        res = verify_step(witness, device=device)
-    if not res.ok:
-        raise ValueError(f"step relation unsatisfied: {res.reasons}")
-    with timing.scope("trace"):
-        trace = build_step_trace(res)
-        publics = step_publics(res)
-    with timing.scope("stark", items=trace.shape[0], unit="rows", sync=device):
-        proof = stark.prove(StepAir(), trace, publics, config, device=device)
-    timing.finish()
+    with TimingTree("prove_step") as timing:
+        with timing.scope("consensus", sync=device):
+            res = verify_step(witness, device=device)
+        if not res.ok:
+            raise ValueError(f"step relation unsatisfied: {res.reasons}")
+        with timing.scope("trace"):
+            trace = build_step_trace(res)
+            publics = step_publics(res)
+        with timing.scope("stark", items=trace.shape[0], unit="rows", sync=device):
+            proof = stark.prove(StepAir(), trace, publics, config, device=device, timing=timing)
     return StepProof(
         outputs=res.outputs,
         publics=publics,

@@ -14,13 +14,13 @@ their full FIPS padding) against it.
 
 from __future__ import annotations
 
-from contextlib import nullcontext
 from dataclasses import dataclass
 
 from blobstreamx_tpu_torch.golden import merkle as gmerkle
 from blobstreamx_tpu_torch.golden import sha256 as gsha
 from blobstreamx_tpu_torch.prover import sha_air, stark, stark_stream
 from blobstreamx_tpu_torch.prover.config import StarkConfig
+from blobstreamx_tpu_torch.utils.timing import maybe_scope
 
 LEAF_PREFIX = b"\x00"
 INNER_PREFIX = b"\x01"
@@ -92,7 +92,7 @@ def prove_data_commitment_stark(
     timing: a TimingTree that the host trace build and the streaming
     prover's phases are added to."""
     config = config or StarkConfig(rate_bits=2)
-    with nullcontext() if timing is None else timing.scope("trace (host)"):
+    with maybe_scope(timing, "host trace"):
         messages, root = tuple_tree_messages(heights, data_hashes)
         chain, blocks = sha_air.plan_blocks(messages)
         assert chain == _expected_chain(len(heights))

@@ -31,7 +31,6 @@ JAX package's for the same witness and config.
 
 from __future__ import annotations
 
-from contextlib import nullcontext
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -43,6 +42,7 @@ from blobstreamx_tpu_torch.golden import sha256 as gsha
 from blobstreamx_tpu_torch.prover import sha_air, stark, stark_stream
 from blobstreamx_tpu_torch.prover.config import StarkConfig
 from blobstreamx_tpu_torch.prover.sha_claims import _pad_words, tuple_tree_messages
+from blobstreamx_tpu_torch.utils.timing import maybe_scope
 
 LEAF = b"\x00"
 INNER = b"\x01"
@@ -360,10 +360,8 @@ def prove_skip_sha_stark(
     n_rows = 0
     shard_log = []
     for k, (lo, hi, padded) in enumerate(shards):
-        scope = nullcontext() if timing is None else timing.scope(
-            f"shard {k}", items=padded, unit="blocks", sync=device)
-        with scope as node:
-            with nullcontext() if timing is None else timing.scope("trace (host)"):
+        with maybe_scope(timing, f"shard {k}", items=padded, unit="blocks", sync=device) as node:
+            with maybe_scope(timing, "host trace"):
                 chain_s, blocks_s = sha_air.plan_blocks(messages[lo:hi])
                 if len(chain_s) < padded:  # plan_blocks pads to the next power of two
                     pad = gsha.pad(b"")

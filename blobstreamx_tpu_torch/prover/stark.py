@@ -39,6 +39,7 @@ from blobstreamx_tpu_torch.golden import ntt as golden_ntt
 from blobstreamx_tpu_torch.golden.challenger import Challenger
 from blobstreamx_tpu_torch.golden.merkle import poseidon_verify_path
 from blobstreamx_tpu_torch.ops import merkle as merkle_ops, ntt as ntt_ops
+from blobstreamx_tpu_torch.utils.timing import maybe_scope
 from .air import Air, DeviceAlgebra, HostExtAlgebra, KINDS
 from .config import StarkConfig
 from .fri_ext import FriExtProof, fri_prove_ext, fri_verify_ext
@@ -516,11 +517,15 @@ def prove(
     aux=None,
     device=None,
     mesh=None,
+    timing=None,
 ) -> StarkProof:
     """trace: (n_rows, n_cols) uint64 execution trace (rows over the subgroup
     H of order n_rows, natural order). aux: post-commit claims for AIRs with
     sample_challenges (observed into the transcript before sampling).
     device: where the prover's tensors live (default: the card).
+    timing: a TimingTree to time the phases in, under prove_streaming's
+    names (each scope synchronises); "aux + stage 2" only for an AIR with
+    stage-2 columns.
 
     mesh: a parallel.mesh.Mesh; every rank of it calls prove with the same
     arguments and gets the same proof, byte for byte the single-device one.
@@ -529,8 +534,12 @@ def prove(
     if mesh is not None:
         from .stark_stream import prove_streaming
 
-        return prove_streaming(air, trace, publics, config, shift, aux, device=device, mesh=mesh)
+        return prove_streaming(air, trace, publics, config, shift, aux, device=device, timing=timing, mesh=mesh)
     device = resolve(device)
+
+    def phase(name):
+        return maybe_scope(timing, name, sync=device)
+
     n, n_cols = trace.shape
     assert n & (n - 1) == 0
     assert n_cols == air.n_cols
@@ -544,88 +553,95 @@ def prove(
     challenger = Challenger()
     challenger.observe_many([v % P for v in publics])
 
-    trace_gl = gf64.from_u64(trace, device)
-    fixed_lde = _fixed_lde_cached(air.cache_key(), air, n, config.rate_bits, shift, device)
-    trace_coeffs, trace_lde, t_layers = _commit(trace_gl, config.rate_bits, shift, ch)
-    trace_tree = _as_tree(t_layers, ch)
-    trace_cap = merkle_ops.cap_to_ints(trace_tree)
-    _observe_cap(challenger, trace_cap)
-
-    air.observe_aux(challenger, aux)
-    chals = air.sample_challenges(challenger, aux)
-    assert len(chals) == air.n_challenges
-    chal_elems = [gf64.full((1,), v % P, device) for v in chals]
+    with phase("commit"):
+        trace_gl = gf64.from_u64(trace, device)
+        fixed_lde = _fixed_lde_cached(air.cache_key(), air, n, config.rate_bits, shift, device)
+        trace_coeffs, trace_lde, t_layers = _commit(trace_gl, config.rate_bits, shift, ch)
+        trace_tree = _as_tree(t_layers, ch)
+        trace_cap = merkle_ops.cap_to_ints(trace_tree)
+        _observe_cap(challenger, trace_cap)
 
     # stage 2: challenge-dependent columns, committed AFTER sampling
     n_s2 = air.n_stage2
-    if n_s2:
-        s2 = air.build_stage2(trace, chals, aux)
-        assert s2.shape == (n, n_s2)
-        s2_gl = gf64.from_u64(np.asarray(s2, np.uint64) % P, device)
-        s2_coeffs, s2_lde, s2_layers = _commit(s2_gl, config.rate_bits, shift, ch)
-        s2_tree = _as_tree(s2_layers, ch)
-        s2_cap = merkle_ops.cap_to_ints(s2_tree)
-        _observe_cap(challenger, s2_cap)
-    else:
-        s2_coeffs, s2_lde, s2_tree, s2_cap = (
-            gf64.zeros((n, 0), device), gf64.zeros((n_ext, 0), device), None, [],
-        )
+    with maybe_scope(timing if n_s2 else None, "aux + stage 2", sync=device):
+        air.observe_aux(challenger, aux)
+        chals = air.sample_challenges(challenger, aux)
+        assert len(chals) == air.n_challenges
+        chal_elems = [gf64.full((1,), v % P, device) for v in chals]
 
-    alpha = challenger.sample_ext()
-    pub_elems = [gf64.full((1,), v % P, device) for v in publics]
-    q_cols = _quotient_cols(
-        air, trace_lde, s2_lde, pub_elems, _ext_to_device(alpha, device), fixed_lde,
-        chal_elems, n, config, shift, device,
-    )
-    q_chunk_coeffs, q_lde, q_layers = _quotient_commit(q_cols, n, config, shift, ch)
-    q_tree = _as_tree(q_layers, ch)
-    q_cap = merkle_ops.cap_to_ints(q_tree)
-    _observe_cap(challenger, q_cap)
-
-    zeta = challenger.sample_ext()
-    g_zeta = gold.ext_mul(zeta, (g, 0))
-    zeta_d, g_zeta_d = _ext_to_device(zeta, device), _ext_to_device(g_zeta, device)
-    tz_d, tgz_d, s2z_d, s2gz_d, qz_d = _openings(
-        trace_coeffs, s2_coeffs, q_chunk_coeffs, zeta_d, g_zeta_d, n
-    )
-    trace_zeta = _ext_vec_to_host(tz_d)
-    trace_gzeta = _ext_vec_to_host(tgz_d)
-    stage2_zeta = _ext_vec_to_host(s2z_d)
-    stage2_gzeta = _ext_vec_to_host(s2gz_d)
-    quotient_zeta = _ext_vec_to_host(qz_d)
-    for v in trace_zeta + trace_gzeta + stage2_zeta + stage2_gzeta + quotient_zeta:
-        _observe_ext(challenger, v)
-
-    gamma = challenger.sample_ext()
-    deep_cw = _deep(
-        trace_lde, s2_lde, q_lde, zeta_d, g_zeta_d, _ext_to_device(gamma, device),
-        tz_d, tgz_d, s2z_d, s2gz_d, qz_d, n, config, shift,
-    )
-
-    fri_proof, indices = fri_prove_ext(deep_cw, config.fri(), challenger, shift)
-
-    t_host = gf64.to_u64(trace_lde)
-    q_host = gf64.to_u64(q_lde)
-    s2_host = gf64.to_u64(s2_lde) if n_s2 else None
-    half = n_ext // 2
-    openings = []
-    for idx in indices:
-        i = idx % half
-        sources = [(t_host, trace_tree), (q_host, q_tree)]
         if n_s2:
-            sources.append((s2_host, s2_tree))
-        rows = []
-        for host, tree in sources:
-            pair = []
-            for posn in (i, i + half):
-                path, _ = tree.path(posn)
-                pair.append(RowOpening(row=[int(v) for v in host[posn]], path=path))
-            rows.append((pair[0], pair[1]))
-        openings.append(
-            QueryOpenings(
-                trace=rows[0], quotient=rows[1], stage2=rows[2] if n_s2 else None
+            s2 = air.build_stage2(trace, chals, aux)
+            assert s2.shape == (n, n_s2)
+            s2_gl = gf64.from_u64(np.asarray(s2, np.uint64) % P, device)
+            s2_coeffs, s2_lde, s2_layers = _commit(s2_gl, config.rate_bits, shift, ch)
+            s2_tree = _as_tree(s2_layers, ch)
+            s2_cap = merkle_ops.cap_to_ints(s2_tree)
+            _observe_cap(challenger, s2_cap)
+        else:
+            s2_coeffs, s2_lde, s2_tree, s2_cap = (
+                gf64.zeros((n, 0), device), gf64.zeros((n_ext, 0), device), None, [],
             )
+
+    with phase("quotient"):
+        alpha = challenger.sample_ext()
+        pub_elems = [gf64.full((1,), v % P, device) for v in publics]
+        q_cols = _quotient_cols(
+            air, trace_lde, s2_lde, pub_elems, _ext_to_device(alpha, device), fixed_lde,
+            chal_elems, n, config, shift, device,
         )
+        q_chunk_coeffs, q_lde, q_layers = _quotient_commit(q_cols, n, config, shift, ch)
+        q_tree = _as_tree(q_layers, ch)
+        q_cap = merkle_ops.cap_to_ints(q_tree)
+        _observe_cap(challenger, q_cap)
+
+    with phase("openings"):
+        zeta = challenger.sample_ext()
+        g_zeta = gold.ext_mul(zeta, (g, 0))
+        zeta_d, g_zeta_d = _ext_to_device(zeta, device), _ext_to_device(g_zeta, device)
+        tz_d, tgz_d, s2z_d, s2gz_d, qz_d = _openings(
+            trace_coeffs, s2_coeffs, q_chunk_coeffs, zeta_d, g_zeta_d, n
+        )
+        trace_zeta = _ext_vec_to_host(tz_d)
+        trace_gzeta = _ext_vec_to_host(tgz_d)
+        stage2_zeta = _ext_vec_to_host(s2z_d)
+        stage2_gzeta = _ext_vec_to_host(s2gz_d)
+        quotient_zeta = _ext_vec_to_host(qz_d)
+        for v in trace_zeta + trace_gzeta + stage2_zeta + stage2_gzeta + quotient_zeta:
+            _observe_ext(challenger, v)
+
+    with phase("deep"):
+        gamma = challenger.sample_ext()
+        deep_cw = _deep(
+            trace_lde, s2_lde, q_lde, zeta_d, g_zeta_d, _ext_to_device(gamma, device),
+            tz_d, tgz_d, s2z_d, s2gz_d, qz_d, n, config, shift,
+        )
+
+    with phase("fri"):
+        fri_proof, indices = fri_prove_ext(deep_cw, config.fri(), challenger, shift)
+
+    with phase("queries"):
+        t_host = gf64.to_u64(trace_lde)
+        q_host = gf64.to_u64(q_lde)
+        s2_host = gf64.to_u64(s2_lde) if n_s2 else None
+        half = n_ext // 2
+        openings = []
+        for idx in indices:
+            i = idx % half
+            sources = [(t_host, trace_tree), (q_host, q_tree)]
+            if n_s2:
+                sources.append((s2_host, s2_tree))
+            rows = []
+            for host, tree in sources:
+                pair = []
+                for posn in (i, i + half):
+                    path, _ = tree.path(posn)
+                    pair.append(RowOpening(row=[int(v) for v in host[posn]], path=path))
+                rows.append((pair[0], pair[1]))
+            openings.append(
+                QueryOpenings(
+                    trace=rows[0], quotient=rows[1], stage2=rows[2] if n_s2 else None
+                )
+            )
 
     return StarkProof(
         trace_cap=trace_cap,

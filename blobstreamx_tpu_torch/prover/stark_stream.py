@@ -55,8 +55,6 @@ value.
 
 from __future__ import annotations
 
-from contextlib import nullcontext
-
 import numpy as np
 import torch
 
@@ -66,6 +64,7 @@ from blobstreamx_tpu_torch.fields.gf64 import Gl, gl_mul
 from blobstreamx_tpu_torch.golden import goldilocks as gold
 from blobstreamx_tpu_torch.golden.challenger import Challenger
 from blobstreamx_tpu_torch.ops import merkle as merkle_ops, ntt as ntt_ops, poseidon as pos
+from blobstreamx_tpu_torch.utils.timing import maybe_scope
 from .air import Air
 from .config import StarkConfig
 from .fri_ext import fri_prove_ext
@@ -470,7 +469,7 @@ def prove_streaming(
     device = resolve_with_mesh(device, mesh)
 
     def phase(name):
-        return nullcontext() if timing is None else timing.scope(name, sync=device)
+        return maybe_scope(timing, name, sync=device)
 
     n, n_cols = trace.shape
     assert n & (n - 1) == 0
@@ -505,7 +504,7 @@ def prove_streaming(
 
         n_s2 = air.n_stage2
         if n_s2:
-            with phase("stage 2 (host)"):
+            with phase("host stage 2"):
                 s2 = air.build_stage2(trace, chals, aux)
             assert s2.shape == (n, n_s2)
             s2_src = _Source(np.asarray(s2, np.uint64) % P, chunk, cache_ok, device)

@@ -7,7 +7,8 @@ Usage:
 
 The directory receives a Chrome trace (`*.pt.trace.json`, readable by
 Perfetto or chrome://tracing) of host operators and, with a card, of the
-device kernels. Host phases show up as ranges opened with annotate().
+device kernels. Every TimingTree scope shows up as a range opened with
+annotate(), named by its node's path ("prove_skip/consensus/links").
 """
 
 from __future__ import annotations
@@ -40,21 +41,3 @@ def annotate(name: str):
 
     return record_function(name)
 
-
-def device_memory_stats() -> dict:
-    """Per-card memory: {"cuda:<i>": {bytes_in_use, peak_bytes_in_use,
-    bytes_limit}} from the caching allocator's counters and the card's
-    total memory; {} when no card is visible."""
-    import torch
-
-    if not torch.cuda.is_available():
-        return {}
-    out = {}
-    for i in range(torch.cuda.device_count()):
-        stats = torch.cuda.memory_stats(i)
-        out[f"cuda:{i}"] = {
-            "bytes_in_use": stats.get("allocated_bytes.all.current", 0),
-            "peak_bytes_in_use": stats.get("allocated_bytes.all.peak", 0),
-            "bytes_limit": torch.cuda.get_device_properties(i).total_memory,
-        }
-    return out

@@ -179,7 +179,7 @@ result):
      validators_root_device over config 5's and config 3's validator sets
      == the host's root. Phase 8's and phase 10's proofs must keep their
      SHA-256s (SHA_TIER_PROOF_SHA256, FULL_192_PROOF_SHA256), and both
-     print their "trace (host)" nodes. One JSON line {"single_card": {...}}.
+     print their "host trace" nodes. One JSON line {"single_card": {...}}.
  15. parallel/ over torch.distributed (after phase 14; mesh_phase): for
      each of MESH_RUNS, ranks of this script (`--mesh-rank`, one process
      each, joined through a file store under build/mesh_phase/), NCCL when
@@ -863,8 +863,8 @@ def small_chain_card_vs_cpu():
 
 
 def trace_host_nodes(timing: str) -> list[str]:
-    """The "trace (host)" lines of a rendered TimingTree, stripped."""
-    return [line.strip() for line in timing.splitlines() if line.strip().endswith("trace (host)")]
+    """The "host trace" lines of a rendered TimingTree, stripped."""
+    return [line.strip() for line in timing.splitlines() if line.strip().endswith("host trace")]
 
 
 def warm_run(prove):
@@ -1234,7 +1234,7 @@ def config5_sha(w, smi: str, profile: bool):
     blob = skip_proof_to_bytes(warm)
     digest = hashlib.sha256(blob).hexdigest()
     log(f"  warm proof: {len(blob)} bytes, SHA-256 {digest}")
-    log(f"  trace (host) nodes (native trace fill): {trace_host_nodes(warm.timing)}")
+    log(f"  host trace nodes (native trace fill): {trace_host_nodes(warm.timing)}")
     assert blob == skip_proof_to_bytes(cold), "warm and cold SHA-tier proofs differ"
     assert digest == SHA_TIER_PROOF_SHA256, "the SHA-tier proof's bytes changed (its SHA-256)"
     del cold, blob
@@ -1375,7 +1375,7 @@ def config5_full(smi: str):
     digest = hashlib.sha256(blob).hexdigest()
     round_trip = skip_proof_to_bytes(skip_proof_from_bytes(blob)) == blob
     log(f"  proof: {len(blob)} bytes, SHA-256 {digest}, serializer round trip equal: {round_trip}")
-    log(f"  trace (host) nodes (native trace fill): {trace_host_nodes(proof.timing)}")
+    log(f"  host trace nodes (native trace fill): {trace_host_nodes(proof.timing)}")
     assert round_trip, "the full-tier proof does not survive a serializer round trip"
     assert digest == FULL_192_PROOF_SHA256, "the 192-header full-tier proof's bytes changed (its SHA-256)"
 

@@ -1,0 +1,9 @@
+"""stark.fri_s (s, program_span; moves proof_s; layer STARK): the program's
+TimingTree node "stark/fri" (FRI over the DEEP codeword: the folds, their Merkle commitments and the proof of work), which ends on a synchronised card; the mean a proof over the
+window's untraced proofs. None where the program has no such span."""
+
+from portbench.harness import spans
+
+
+def read(run):
+    return spans.mean_child(run, "stark", "fri")

@@ -5,7 +5,8 @@ verifier accepts the other's proof and rejects tampered publics. The
 skip's phase checkpoints (prove_skip(checkpoint_dir=...)) have the JAX
 package's layout, key and contents, each package resumes the other's
 consensus and trace to the other's proof bytes, and the closing metrics
-records agree.
+records agree; the port's record holds the skip's consensus steps and STARK
+phases in order, within their parents.
 
 All JAX work (prove_skip with its checkpoints and metrics, a second
 prove_skip resumed from the port's consensus and trace, prove_step, the cross-verification, verify_step on
@@ -344,3 +345,19 @@ def test_metrics_records_match_jax(runs):
 
     assert top(got["phases"]) == top(want["phases"]) == ["prove_skip/consensus", "prove_skip/trace",
                                                          "prove_skip/stark"]
+
+
+@pytest.mark.parametrize("parent,children", [
+    ("consensus", ["valsets", "signatures", "powers", "links", "data"]),
+    ("stark", ["commit", "quotient", "openings", "deep", "fri", "queries"]),
+])
+def test_skip_timing_record_holds_the_spans_in_order(runs, parent, children):
+    """The skip's consensus steps and STARK phases, in the order the code
+    runs them, together within their parent (the record's seconds are the
+    tree's own)."""
+    (got,) = [json.loads(line) for line in (runs["out"] / "port_metrics.jsonl").read_text().splitlines()]
+    phases = got["phases"]
+    path = f"prove_skip/{parent}"
+    kids = [k for k in phases if k.rsplit("/", 1)[0] == path]
+    assert kids == [f"{path}/{c}" for c in children]
+    assert sum(phases[k] for k in kids) <= phases[path]

@@ -21,6 +21,7 @@ from blobstreamx_tpu_torch.prover import serialize, sha_air, stark, stark_stream
 from blobstreamx_tpu_torch.prover.air import Air, DeviceAlgebra, HostExtAlgebra, frame_block
 from blobstreamx_tpu_torch.prover.config import StarkConfig
 from blobstreamx_tpu_torch.prover.pipeline import SkipAir, build_skip_trace
+from blobstreamx_tpu_torch.utils.timing import TimingTree
 
 torch.set_num_threads(1)
 P = gold.P
@@ -122,18 +123,24 @@ def _toy_case(n=16):
 def test_stream_matches_standard_toy_air(monkeypatch):
     """col_chunk 8 over 19 columns: chunks of 8, 8 and 3; EVAL_BYTES cut so
     each of the 4 classes evaluates in 4 row ranges; with and without the
-    coefficient cache."""
+    coefficient cache. Both provers time the same phases, by name."""
     trace, publics, aux = _toy_case()
     cfg = StarkConfig(**CFG)
     air = ToyAir()
     assert stark_stream._chunk_bounds(19, 8) == [(0, 8), (8, 16), (16, 19)]
     monkeypatch.setattr(stark_stream, "EVAL_BYTES", 4 * 8 * (19 + 1 + 1))
     assert stark_stream._eval_rows(16, 21) == 4
-    p_std = stark.prove(air, trace, publics, cfg, aux=aux, device="cpu")
+    trees = {name: TimingTree(name) for name in ("standard", "streaming")}
+    p_std = stark.prove(air, trace, publics, cfg, aux=aux, device="cpu", timing=trees["standard"])
     assert stark.verify(air, p_std, publics, cfg, trace.shape[0], aux=aux)
     want = serialize.stark_proof_to_bytes(p_std)
-    p_str = stark_stream.prove_streaming(air, trace, publics, cfg, aux=aux, col_chunk=8, device="cpu")
+    p_str = stark_stream.prove_streaming(air, trace, publics, cfg, aux=aux, col_chunk=8, device="cpu",
+                                         timing=trees["streaming"])
     assert serialize.stark_proof_to_bytes(p_str) == want
+    # both provers time the same phases under the same names, stage 2 included
+    phases = {name: [c.name for c in t.root.children] for name, t in trees.items()}
+    assert phases["standard"] == phases["streaming"] == [
+        "commit", "aux + stage 2", "quotient", "openings", "deep", "fri", "queries"]
     monkeypatch.setattr(stark_stream, "COEFF_CACHE_BYTES", 0)
     p_str = stark_stream.prove_streaming(air, trace, publics, cfg, aux=aux, col_chunk=8, device="cpu")
     assert serialize.stark_proof_to_bytes(p_str) == want
